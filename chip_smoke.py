@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``contrad_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, in order; any failure ends the run with a non-zero exit code and no
+result line:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the hand-written CUDA blur kernel (``contrad_tpu_torch/csrc``) from
+   the sources beside this script, and time the build;
+3. hold the blur kernel to its plain PyTorch version at every (shape, pad)
+   the 32x32 StyleGAN2 train step gives it, in float32 (TF32 off) and
+   bfloat16, forward, backward and double backward; then time the kernel,
+   the plain version and a depthwise ``F.conv2d`` (a yardstick the port never
+   calls) at those shapes, beside the least time the card could take;
+4. the main path: 6 train steps of the StyleGAN2 + ContraD recipe
+   (``contrad_tpu_torch.train_stylegan2``: ``stylegan2`` at full width,
+   batch 64, R1 every step) on synthetic 32x32 data, with the kernel's
+   launch count set to 0 just before and read just after; losses must be
+   finite and every kernel must have launched; then a torch.profiler
+   breakdown of three more steps (device time by kernel, idle share);
+5. G and D forwards on the card against the same modules on the CPU (plain
+   versions) on a small input.
+
+Then it prints the kernel table as one JSON line, the card's name and power
+limit, and, last, ``{"ok": true, "device": {...}}``. It needs the repository
+around it and exits non-zero where no CUDA card is present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores (the blur's arithmetic).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# max |kernel - plain| allowed: float32 sums of 4 + 4 taps in another
+# order; bfloat16 output rounded once from float32 in both, one ulp apart
+# at most (2^-7 relative).
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 8e-3)}  # (atol, rtol)
+MODEL_TOL = (1e-4, 1e-4)  # card vs CPU, float32 convs in other orders
+RECIPE = ["configs/gan/stylegan2/c10_style64.toml", "stylegan2",
+          "--mode", "contrad", "--aug", "simclr", "--lbd_r1", "0.1",
+          "--no_lazy", "--halflife_k", "1000", "--use_warmup"]
+BATCH = 64
+STEPS = 6  # the first is warm-up: the step time is the mean of the others
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ blur
+
+def blur_cases():
+    """Every forward (shape, pad, upsample factor) of one train step of the
+    32x32 StyleGAN2 (small32 channels {32: 128, 16: 256, 8: 512}): G's
+    post-upsample blurs at batch 64, and D's two downsample blurs per
+    ResBlock (3x3 conv2: pads (2, 2); 1x1 skip: pads (1, 1)) at batch 64
+    (the G phase and R1) and 192 (the D phase's real, real, fake). The
+    backward of each is the adjoint blur, checked beside it."""
+    ch = {8: 512, 16: 256, 32: 128}
+    cases = [((BATCH, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2)
+             for s in (4, 8, 16)]
+    for n in (BATCH, 3 * BATCH):
+        for s in (32, 16, 8):
+            cases += [((n, s, s, ch[s]), (2, 2), 1),
+                      ((n, s, s, ch[s]), (1, 1), 1)]
+    return cases
+
+
+def cuda_ms(fn, iters: int = 30) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copy_bandwidth() -> float:
+    """Device-to-device copy rate in bytes/s (read + write), this card."""
+    import torch
+
+    a = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    b = torch.empty_like(a)
+    ms = cuda_ms(lambda: b.copy_(a), iters=20)
+    return 2 * a.numel() / (ms * 1e-3)
+
+
+def check_blur(blur, cases) -> float:
+    """Kernel vs plain version, forward, backward and double backward, in
+    float32 and bfloat16; returns the largest float32 error."""
+    import torch
+
+    from contrad_tpu_torch.ops.upfirdn2d import blur_taps, make_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for shape, pad, up in cases:
+        taps = blur_taps(make_kernel([1, 3, 3, 1]), up)
+        n, h, w, c = shape
+        k = len(taps[0])
+        out_shape = (n, h + sum(pad) - k + 1, w + sum(pad) - k + 1, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            atol, rtol = TOL[name]
+            x, g, hh = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                        for s in (shape, out_shape, shape))
+
+            def run(fn):
+                # y = blur(x); gx = blur^T(g), the backward; d<gx, hh>/dg =
+                # blur(hh), the double backward R1 takes
+                xx = x.clone().requires_grad_(True)
+                gg = g.clone().requires_grad_(True)
+                y = fn(xx, *taps, pad)
+                (gx,) = torch.autograd.grad(y, xx, gg, create_graph=True)
+                (g2,) = torch.autograd.grad(gx, gg, hh)
+                return y.detach(), gx.detach(), g2
+
+            got = run(blur.blur2d)
+            want = run(blur.blur2d_plain)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("fwd", "bwd", "2nd"), got, want):
+                err = float((a.float() - b.float()).abs().max())
+                limit = float(atol + rtol * b.float().abs().max())
+                log(f"  blur {name:8s} {what} {str(shape):20s} pad {pad} "
+                    f"up {up}: max|err| {err:.3e} (tol {limit:.3e})")
+                if not err <= limit:
+                    raise AssertionError(
+                        f"blur kernel disagrees with its plain version: "
+                        f"{name} {what} {shape} pad {pad}: {err} > {limit}")
+                worst[name] = max(worst[name], err)
+    return worst["float32"]
+
+
+def time_blur(blur, cases, copy_bps: float):
+    """Per forward case (float32): kernel, plain and depthwise-conv ms, and
+    the bound at the published HBM rate and at the measured copy rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from contrad_tpu_torch.ops.upfirdn2d import blur_taps, make_kernel
+
+    rows = []
+    for shape, pad, up in cases:
+        taps_v, taps_h = blur_taps(make_kernel([1, 3, 3, 1]), up)
+        k = len(taps_v)
+        n, h, w, c = shape
+        ho, wo = h + pad[0] + pad[1] - k + 1, w + pad[0] + pad[1] - k + 1
+        x = torch.randn(shape, device="cuda")
+        w2d = torch.outer(torch.tensor(taps_v), torch.tensor(taps_h)).cuda()
+        w2d = w2d[None, None].expand(c, 1, k, k).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
+        assert pad[0] == pad[1]
+        ms = cuda_ms(lambda: blur.blur2d(x, taps_v, taps_h, pad))
+        plain_ms = cuda_ms(lambda: blur.blur2d_plain(x, taps_v, taps_h, pad))
+        library_ms = cuda_ms(lambda: F.conv2d(x_nchw, w2d, padding=pad[0],
+                                              groups=c))
+        nbytes = 4 * n * c * (h * w + ho * wo)
+        flops = 2 * k * n * c * ho * (w + pad[0] + pad[1] + wo)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        flops_ms = 1e3 * flops / F32_FLOP_PER_S
+        bound_ms = max(bytes_ms, flops_ms)
+        rows.append(dict(shape=list(shape), pad=list(pad), up=up, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bytes=nbytes, flops=flops,
+                         bound_by="bytes" if bytes_ms >= flops_ms
+                         else "operations",
+                         copy_bound_ms=1e3 * nbytes / copy_bps))
+        log(f"  blur f32 {str(shape):20s} pad {pad} up {up}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, depthwise conv "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (copy-rate bound "
+            f"{rows[-1]['copy_bound_ms']:.4f} ms)")
+    return rows
+
+
+# ------------------------------------------------------------ main path
+
+def train(steps: int):
+    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.train_stylegan2 import main
+
+    import torch
+
+    argv = RECIPE + ["--print_every", "1", "--seed", "0", "--override",
+                     "options.dataset=synthetic_32",
+                     f"options.batch_size={BATCH}",
+                     f"options.max_steps={steps}"]
+    torch.cuda.reset_peak_memory_stats()
+    blur.blur2d.launches = 0
+    history = main(argv)
+    launches = blur.blur2d.launches
+    peak = torch.cuda.max_memory_allocated()
+    for rec in history:
+        for k in ("D_loss", "D_penalty", "D_real", "D_gen", "D_r1", "G_loss"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"step {rec['step']}: {k} = {rec[k]}")
+    if launches == 0:
+        raise AssertionError("the train step never launched the blur kernel")
+    timed = [r["seconds_per_step"] for r in history[1:]]
+    ms_step = 1e3 * sum(timed) / len(timed)
+    return dict(history=history, launches=launches,
+                launches_per_step=launches / steps, ms_per_step=ms_step,
+                img_per_s=BATCH / (ms_step * 1e-3), peak_bytes=peak)
+
+
+def profile_step(steps: int = 3):
+    """Device time by kernel over a few train steps (torch.profiler): the
+    kernels' own time, summed by name, and the device's idle share of the
+    wall time of those steps (under the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from contrad_tpu_torch.train_stylegan2 import build, parse_args
+
+    P = parse_args(RECIPE + ["--seed", "0", "--override",
+                             "options.dataset=synthetic_32"])
+    _, loader, trainer = build(P)
+    for _ in range(2):
+        trainer.train_step(next(loader), do_r1=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(next(loader), do_r1=True)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()  # kernels, not annotations
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    rows = sorted(((e.self_device_time_total / steps / 1e3,
+                    e.count // steps, e.key) for e in kernels), reverse=True)
+    busy = sum(r[0] for r in rows)
+    blur_ms = sum(r[0] for r in rows if "blur2d_kernel" in r[2])
+    log(f"  profile: {wall_ms:.2f} ms/step wall, kernels {busy:.2f} ms/step "
+        f"(idle {100 * (1 - busy / wall_ms):.1f} %), blur kernel "
+        f"{blur_ms:.3f} ms/step ({100 * blur_ms / busy:.1f} % of kernels)")
+    for ms, count, key in rows[:25]:
+        log(f"    {ms:8.3f} ms/step  x{count:<4d} {key[:100]}")
+    return dict(wall_ms_per_step=wall_ms, kernel_ms_per_step=busy,
+                idle_share=1 - busy / wall_ms, blur_ms_per_step=blur_ms,
+                kernels=[dict(ms=ms, count=c, name=k) for ms, c, k in rows])
+
+
+def model_reference_check() -> float:
+    """G and D on the card (blur kernel) vs the same modules on the CPU
+    (plain versions), float32 with TF32 off, on a small batch."""
+    import torch
+
+    from contrad_tpu_torch.models import get_architecture
+
+    G, D = get_architecture("stylegan2", (32, 32, 3), device="cuda", seed=1)
+    Gc, Dc = copy.deepcopy(G).cpu(), copy.deepcopy(D).cpu()
+    gen = torch.Generator().manual_seed(2)
+    z = torch.randn(4, G.style_dim, generator=gen)
+    noise = G.draw_noise(4, gen, torch.device("cpu"))
+    mixing = G.draw_mixing(4, 0.9, gen, torch.device("cpu"))
+    worst = 0.0
+    with torch.no_grad():
+        img = G(z.cuda(), [a.cuda() for a in noise],
+                tuple(m.cuda() for m in mixing))
+        img_c = Gc(z, noise, mixing)
+        d, aux = D(img)
+        d_c, aux_c = Dc(img_c)
+    pairs = [("G images", img, img_c), ("D score", d, d_c)]
+    pairs += [(f"D {k}", aux[k], aux_c[k]) for k in aux]
+    for what, a, b in pairs:
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: shape {tuple(a.shape)} or values")
+        err = float((a.cpu() - b).abs().max())
+        limit = MODEL_TOL[0] + MODEL_TOL[1] * float(b.abs().max())
+        log(f"  {what:16s} {str(tuple(a.shape)):18s} max|card - cpu| "
+            f"{err:.3e} (tol {limit:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"{what}: card and CPU disagree: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write every measurement to this JSON file")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "contrad_tpu_torch" / "csrc" / "blur2d.cu").is_file():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    os.chdir(ROOT)
+
+    from contrad_tpu_torch.ops import blur
+
+    card = card_line()
+    log(f"[1] card: {card}")
+    kind = torch.cuda.get_device_name(0)
+
+    t0 = time.perf_counter()
+    blur.build(verbose=True)
+    build_s = time.perf_counter() - t0
+    log(f"[2] built the blur kernel in {build_s:.2f} s")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = blur_cases()
+    log(f"[3] blur kernel vs plain version at {len(cases)} main-path cases")
+    max_err = check_blur(blur, cases)
+    copy_bps = copy_bandwidth()
+    log(f"  device-to-device copy: {copy_bps / 1e9:.1f} GB/s")
+    rows = time_blur(blur, cases, copy_bps)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+
+    log(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
+        f"ContraD recipe, batch {BATCH}")
+    run = train(STEPS)
+    log(f"  blur launches: {run['launches']} ({run['launches_per_step']:.1f}"
+        f" per step); {run['ms_per_step']:.2f} ms/step after the first, "
+        f"{run['img_per_s']:.1f} img/s; peak memory "
+        f"{run['peak_bytes'] / 2**30:.3f} GiB")
+    prof = profile_step()
+
+    torch.backends.cudnn.allow_tf32 = False
+    log("[5] G and D forwards, card vs CPU")
+    model_err = model_reference_check()
+
+    big = max(rows, key=lambda r: r["bytes"])
+    kernels = [{
+        "name": "blur2d", "route": "cuda",
+        "source": "contrad_tpu_torch/csrc/blur2d.cu",
+        "replaces": "contrad_tpu/ops/pallas_blur.py:73",
+        "launches": run["launches"], "max_abs_err": max_err,
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": big["library_ms"]}]
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(dict(
+            card=card, kind=kind, build_s=build_s, blur_cases=rows,
+            blur_max_abs_err=max_err, copy_bytes_per_s=copy_bps,
+            train={k: v for k, v in run.items()}, profile=prof,
+            model_max_abs_err=model_err, kernels=kernels), indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+"""ContraD on PyTorch and CUDA for one NVIDIA H100.
+
+The port of ``contrad_tpu`` (JAX on a TPU), module for module. It imports
+``torch`` and never JAX or anything of ``contrad_tpu``; the JAX package stays
+beside it as the reference that ``tests/test_torch_port_*.py`` hold it to.
+
+Conventions shared by every module:
+  * public functions take and return NHWC images, as the JAX package does,
+    so the tests compare like with like;
+  * randomness comes from explicit ``torch.Generator``s, and every random
+    draw of the train step can also be passed in (the tests feed the draws
+    JAX made);
+  * entry points run on the card (``device="cuda"``) and raise when there is
+    none, unless the caller asks for ``device="cpu"``. The hand-written CUDA
+    kernels serve CUDA tensors; their plain PyTorch versions serve CPU
+    tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on: ``cuda`` (the default) must exist;
+    ``cpu`` is taken only when asked for. There is no silent fallback."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU")
+        return device
+    if device.type == "cpu":
+        return device
+    raise ValueError(f"unsupported device {device}: use 'cuda' or 'cpu'")
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in its own type where that is wider: the places
+    where the JAX package computes in float32 (heads, losses, statistics)
+    widen narrower inputs and keep a float64 run in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))

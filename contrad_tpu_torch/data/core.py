@@ -1,0 +1,81 @@
+"""Dataset container and the device-resident batch stream (the port of
+``contrad_tpu/data/core.py``: ``ArrayDataset``, ``BatchIterator``'s epoch
+bookkeeping and ``DeviceBatchIterator``).
+
+The whole uint8 train set is copied to the device once; each step gathers
+its batch there from an index vector, so no pixels cross the host link
+after set-up. Epoch semantics match the JAX package: a seeded reshuffle per
+epoch (``numpy.random.default_rng((seed, epoch))``) and drop-last.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from contrad_tpu_torch import resolve_device
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    """uint8 NHWC images (+ int labels) in host memory."""
+
+    images: np.ndarray  # (N, H, W, C) uint8
+    labels: Optional[np.ndarray] = None  # (N,) int64
+    train_aug: str = "none"  # augmentation the reference baked into transforms
+    n_classes: int = 1
+
+    def __post_init__(self):
+        if self.images.dtype != np.uint8:
+            raise TypeError("datasets carry uint8 images")
+        if self.labels is None:
+            self.labels = np.zeros((len(self.images),), dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    @property
+    def image_size(self) -> Tuple[int, int, int]:
+        return tuple(self.images.shape[1:])
+
+
+class DeviceBatchIterator:
+    """Infinite stream of shuffled uint8 NHWC batches gathered on the device."""
+
+    def __init__(self, dataset: ArrayDataset, batch_size: int, seed: int = 0,
+                 start_epoch: int = 0, device: str | torch.device = "cuda"):
+        if batch_size > len(dataset):
+            raise ValueError(
+                f"batch_size {batch_size} exceeds dataset size {len(dataset)}")
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.epoch = start_epoch
+        self.n = len(dataset)
+        self._order = None
+        self._pos = 0
+        self.images = torch.from_numpy(np.ascontiguousarray(dataset.images)).to(
+            self.device)
+
+    def next_indices(self) -> np.ndarray:
+        """Advance the stream by one batch and return its dataset rows."""
+        if self._order is None or self._pos + self.batch_size > self.n:
+            if self._order is not None:
+                self.epoch += 1
+            rng = np.random.default_rng((self.seed, self.epoch))
+            self._order = rng.permutation(self.n)
+            self._pos = 0
+        idx = self._order[self._pos: self._pos + self.batch_size]
+        self._pos += self.batch_size
+        return idx
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> torch.Tensor:
+        idx = torch.from_numpy(self.next_indices()).to(self.device,
+                                                       non_blocking=True)
+        return self.images.index_select(0, idx)

@@ -1,0 +1,50 @@
+"""Architecture registry (the port of ``contrad_tpu/models/__init__.py``).
+
+``get_architecture(name, image_size, device)`` returns ``(G, D)`` modules on
+``device``:
+  * ``stylegan2``      — small32 StyleGAN2 G + ResidualDiscriminatorP(d_hidden=512)
+  * ``stylegan2_tiny`` — test width (0.25x channels, n_mlp=2, d_hidden=32)
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from contrad_tpu_torch import resolve_device
+from contrad_tpu_torch.models.base import Discriminator, l2_normalize_rows
+
+
+def get_architecture(architecture: str, image_size: Tuple[int, int, int],
+                     device: str | torch.device = "cuda",
+                     seed: Optional[int] = None
+                     ) -> Tuple[nn.Module, Discriminator]:
+    """Build (G, D) in float32 on ``device``; ``seed`` makes the random
+    initialisation reproducible."""
+    from contrad_tpu_torch.models.stylegan2 import DStylegan2, GStylegan2
+
+    device = resolve_device(device)
+    resolution = image_size[0]
+    if architecture not in ("stylegan2", "stylegan2_tiny"):
+        raise NotImplementedError(f"unknown architecture: {architecture}")
+    # Parameters are drawn on the CPU from a forked global generator, so a
+    # seed gives the same weights on every device and the caller's random
+    # state is left as it was.
+    with torch.random.fork_rng(devices=[]):
+        if seed is not None:
+            torch.manual_seed(seed)
+        if architecture == "stylegan2":
+            generator = GStylegan2(size=resolution, n_mlp=8, small32=True)
+            discriminator = DStylegan2(size=resolution, small32=True,
+                                       d_hidden=512)
+        else:
+            generator = GStylegan2(size=resolution, n_mlp=2,
+                                   channel_multiplier=0.25)
+            discriminator = DStylegan2(size=resolution, channel_multiplier=0.25,
+                                       d_hidden=32)
+    return generator.to(device), discriminator.to(device)
+
+
+__all__ = ["get_architecture", "Discriminator", "l2_normalize_rows"]
