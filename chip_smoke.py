@@ -10,16 +10,20 @@ result line:
 2. build the hand-written CUDA blur kernel (``contrad_tpu_torch/csrc``) from
    the sources beside this script, and time the build;
 3. hold the blur kernel to its plain PyTorch version at every (shape, pad)
-   the 32x32 StyleGAN2 train step gives it, in float32 (TF32 off) and
-   bfloat16, forward, backward and double backward; then time the kernel,
-   the plain version and a depthwise ``F.conv2d`` (a yardstick the port never
-   calls) at those shapes, beside the least time the card could take;
+   the 32x32 StyleGAN2 train step gives it, forward and adjoint, and at the
+   512x512 recipe's largest blurs, in float32 (TF32 off) and bfloat16,
+   forward, backward and double backward; then time the kernel (L2 warm and
+   cold, float32 and bfloat16), the plain version and a depthwise
+   ``F.conv2d`` (a yardstick the port never calls) at those shapes, beside
+   the least time the card could take; sum the kernel's times weighted by
+   launches per step; time the wrapper's host cost per call;
 4. the main path: 6 train steps of the StyleGAN2 + ContraD recipe
    (``contrad_tpu_torch.train_stylegan2``: ``stylegan2`` at full width,
    batch 64, R1 every step) on synthetic 32x32 data, with the kernel's
-   launch count set to 0 just before and read just after; losses must be
-   finite and every kernel must have launched; then a torch.profiler
-   breakdown of three more steps (device time by kernel, idle share);
+   launch counts set to 0 just before and read just after; losses must be
+   finite, every kernel must have launched, as often per step as phase 3
+   counts, and never on its scalar path; then a torch.profiler breakdown
+   of three more steps (device time by kernel, idle share);
 5. G and D forwards on the card against the same modules on the CPU (plain
    versions) on a small input.
 
@@ -51,6 +55,7 @@ F32_FLOP_PER_S = 67e12
 # at most (2^-7 relative).
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 8e-3)}  # (atol, rtol)
 MODEL_TOL = (1e-4, 1e-4)  # card vs CPU, float32 convs in other orders
+COLD_BYTES = 120e6  # inputs rotated per cold timing: over twice the 50 MB L2
 RECIPE = ["configs/gan/stylegan2/c10_style64.toml", "stylegan2",
           "--mode", "contrad", "--aug", "simclr", "--lbd_r1", "0.1",
           "--no_lazy", "--halflife_k", "1000", "--use_warmup"]
@@ -72,33 +77,86 @@ def card_line() -> str:
 # ------------------------------------------------------------------ blur
 
 def blur_cases():
-    """Every forward (shape, pad, upsample factor) of one train step of the
-    32x32 StyleGAN2 (small32 channels {32: 128, 16: 256, 8: 512}): G's
-    post-upsample blurs at batch 64, and D's two downsample blurs per
-    ResBlock (3x3 conv2: pads (2, 2); 1x1 skip: pads (1, 1)) at batch 64
-    (the G phase and R1) and 192 (the D phase's real, real, fake). The
-    backward of each is the adjoint blur, checked beside it."""
+    """Every (shape, pad, upsample factor) the blur kernel takes in one train
+    step of the 32x32 StyleGAN2 (small32 channels {32: 128, 16: 256, 8:
+    512}), with its launches per step: G's post-upsample blurs at batch 64,
+    once forward and once as the adjoint; D's two downsample blurs per
+    ResBlock (3x3 conv2: pads (2, 2); 1x1 skip: pads (1, 1)) at batch 192
+    (the D phase's real, real, fake), once each way, and at batch 64 three
+    times each way (the G phase, R1, and R1's double backward). Each
+    adjoint is a row of its own: the gradient's shape, the reversed taps,
+    the complementary pads (k - 1 - pad0, k - 1 - pad1). 54 launches in
+    all. Then, off the main path (0 per step), the blurs of the
+    512x512 recipe (configs/gan/stylegan2/style512_tpu_demo.toml: batch 8,
+    stylegan2_channels(1.0) = {512: 32, 256: 64, 128: 128}): D's 3x3
+    downsample blurs at 512, 256 and 128, and G's last post-upsample blur."""
     ch = {8: 512, 16: 256, 32: 128}
-    cases = [((BATCH, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2)
-             for s in (4, 8, 16)]
-    for n in (BATCH, 3 * BATCH):
+    fwd = [("G", (BATCH, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2, 1)
+           for s in (4, 8, 16)]
+    for n, per_step in ((BATCH, 3), (3 * BATCH, 1)):
         for s in (32, 16, 8):
-            cases += [((n, s, s, ch[s]), (2, 2), 1),
-                      ((n, s, s, ch[s]), (1, 1), 1)]
+            fwd += [("D", (n, s, s, ch[s]), (2, 2), 1, per_step),
+                    ("D", (n, s, s, ch[s]), (1, 1), 1, per_step)]
+    cases = []
+    for who, shape, pad, up, per_step in fwd:
+        cases.append(dict(who=who, shape=shape, pad=pad, up=up,
+                          per_step=per_step, adjoint=False))
+    for who, (n, h, w, c), pad, up, per_step in fwd:
+        cases.append(dict(who=who + " adj", shape=(n, h + sum(pad) - 3,
+                                                   w + sum(pad) - 3, c),
+                          pad=(3 - pad[0], 3 - pad[1]), up=up,
+                          per_step=per_step, adjoint=True))
+    for shape, pad, up, who in (((8, 512, 512, 32), (2, 2), 1, "D 512"),
+                                ((8, 256, 256, 64), (2, 2), 1, "D 512"),
+                                ((8, 128, 128, 128), (2, 2), 1, "D 512"),
+                                ((8, 513, 513, 32), (1, 1), 2, "G 512")):
+        cases.append(dict(who=who, shape=shape, pad=pad, up=up, per_step=0,
+                          adjoint=False))
     return cases
 
 
-def cuda_ms(fn, iters: int = 30) -> float:
+def case_taps(case):
+    from contrad_tpu_torch.ops.upfirdn2d import blur_taps, make_kernel
+
+    taps = blur_taps(make_kernel([1, 3, 3, 1]), case["up"])
+    if case["adjoint"]:
+        taps = tuple(tuple(reversed(t)) for t in taps)
+    return taps
+
+
+def cuda_ms(fn, inputs, iters: int = 30, graph: bool = False) -> float:
+    """Mean ms of ``fn(inputs[i % len(inputs)])`` over ``iters`` calls in a
+    row (CUDA events), after a warm-up; one input is the warm-L2 time,
+    enough of them to overflow L2 the cold one. With ``graph`` the calls
+    are captured once in a CUDA graph and the graph is replayed, so the time
+    is the device's and not the host's rate of issuing launches (a blur
+    call costs the host more than a small blur costs the card)."""
     import torch
 
-    for _ in range(3):
-        fn()
+    iters = max(iters, len(inputs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(inputs[i % len(inputs)])
+    torch.cuda.current_stream().wait_stream(side)
+
+    def calls():
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+
+    run = calls
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            calls()
+        run = g.replay
+    run()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -110,7 +168,7 @@ def copy_bandwidth() -> float:
 
     a = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
     b = torch.empty_like(a)
-    ms = cuda_ms(lambda: b.copy_(a), iters=20)
+    ms = cuda_ms(lambda src: b.copy_(src), [a], iters=20)
     return 2 * a.numel() / (ms * 1e-3)
 
 
@@ -119,12 +177,11 @@ def check_blur(blur, cases) -> float:
     float32 and bfloat16; returns the largest float32 error."""
     import torch
 
-    from contrad_tpu_torch.ops.upfirdn2d import blur_taps, make_kernel
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for shape, pad, up in cases:
-        taps = blur_taps(make_kernel([1, 3, 3, 1]), up)
+    for case in cases:
+        shape, pad = case["shape"], case["pad"]
+        taps = case_taps(case)
         n, h, w, c = shape
         k = len(taps[0])
         out_shape = (n, h + sum(pad) - k + 1, w + sum(pad) - k + 1, c)
@@ -150,55 +207,109 @@ def check_blur(blur, cases) -> float:
             for what, a, b in zip(("fwd", "bwd", "2nd"), got, want):
                 err = float((a.float() - b.float()).abs().max())
                 limit = float(atol + rtol * b.float().abs().max())
-                log(f"  blur {name:8s} {what} {str(shape):20s} pad {pad} "
-                    f"up {up}: max|err| {err:.3e} (tol {limit:.3e})")
+                log(f"  blur {name:8s} {what} {case['who']:6s} "
+                    f"{str(shape):20s} pad {pad} up {case['up']}: max|err| "
+                    f"{err:.3e} (tol {limit:.3e})")
                 if not err <= limit:
                     raise AssertionError(
                         f"blur kernel disagrees with its plain version: "
                         f"{name} {what} {shape} pad {pad}: {err} > {limit}")
                 worst[name] = max(worst[name], err)
+            del x, g, hh, got, want
     return worst["float32"]
 
 
 def time_blur(blur, cases, copy_bps: float):
-    """Per forward case (float32): kernel, plain and depthwise-conv ms, and
-    the bound at the published HBM rate and at the measured copy rate."""
+    """Per case and dtype: the kernel with L2 warm (one input) and cold
+    (inputs rotated through more than twice L2), the fastest depthwise
+    ``F.conv2d`` (channels-last view or NCHW-contiguous copy, the copy
+    untimed), each as CUDA-graph replays; the plain version (float32, eager:
+    it makes its tap tensors on the host every call); the path the kernel
+    took; and the least time the card could take (bytes at the published HBM
+    rate, or float32 operations, whichever is larger)."""
     import torch
     import torch.nn.functional as F
 
-    from contrad_tpu_torch.ops.upfirdn2d import blur_taps, make_kernel
-
     rows = []
-    for shape, pad, up in cases:
-        taps_v, taps_h = blur_taps(make_kernel([1, 3, 3, 1]), up)
+    for case in cases:
+        shape, pad = case["shape"], case["pad"]
+        taps_v, taps_h = case_taps(case)
         k = len(taps_v)
         n, h, w, c = shape
         ho, wo = h + pad[0] + pad[1] - k + 1, w + pad[0] + pad[1] - k + 1
-        x = torch.randn(shape, device="cuda")
-        w2d = torch.outer(torch.tensor(taps_v), torch.tensor(taps_h)).cuda()
-        w2d = w2d[None, None].expand(c, 1, k, k).contiguous()
-        x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
-        assert pad[0] == pad[1]
-        ms = cuda_ms(lambda: blur.blur2d(x, taps_v, taps_h, pad))
-        plain_ms = cuda_ms(lambda: blur.blur2d_plain(x, taps_v, taps_h, pad))
-        library_ms = cuda_ms(lambda: F.conv2d(x_nchw, w2d, padding=pad[0],
-                                              groups=c))
-        nbytes = 4 * n * c * (h * w + ho * wo)
-        flops = 2 * k * n * c * ho * (w + pad[0] + pad[1] + wo)
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        flops_ms = 1e3 * flops / F32_FLOP_PER_S
-        bound_ms = max(bytes_ms, flops_ms)
-        rows.append(dict(shape=list(shape), pad=list(pad), up=up, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bytes=nbytes, flops=flops,
-                         bound_by="bytes" if bytes_ms >= flops_ms
-                         else "operations",
-                         copy_bound_ms=1e3 * nbytes / copy_bps))
-        log(f"  blur f32 {str(shape):20s} pad {pad} up {up}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, depthwise conv "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (copy-rate bound "
-            f"{rows[-1]['copy_bound_ms']:.4f} ms)")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            item = dtype.itemsize
+            x = torch.randn(shape, device="cuda").to(dtype)
+            cold = [x] + [torch.randn_like(x) for _ in range(
+                max(1, math.ceil(COLD_BYTES / x.nbytes)) - 1)]
+            plan = blur.launch_plan(shape, k, pad, dtype)
+            if case["per_step"] and not plan.vector:
+                raise AssertionError(f"main-path shape {shape} took the "
+                                     f"scalar path")
+            ms = cuda_ms(lambda a: blur.blur2d(a, taps_v, taps_h, pad), [x],
+                         graph=True)
+            cold_ms = cuda_ms(lambda a: blur.blur2d(a, taps_v, taps_h, pad),
+                              cold, graph=True)
+            del cold
+            w2d = torch.outer(torch.tensor(taps_v), torch.tensor(taps_h))
+            w2d = w2d[None, None].expand(c, 1, k, k).contiguous().to(
+                "cuda", dtype)
+            x_cl = x.permute(0, 3, 1, 2)  # channels_last view, no copy
+            x_nchw = x_cl.contiguous()
+            assert pad[0] == pad[1]
+            library_ms = min(cuda_ms(lambda a: F.conv2d(
+                a, w2d, padding=pad[0], groups=c), [xx], graph=True)
+                for xx in (x_cl, x_nchw))
+            del x_nchw
+            plain_ms = (cuda_ms(lambda a: blur.blur2d_plain(
+                a, taps_v, taps_h, pad), [x]) if dtype == torch.float32
+                else None)
+            nbytes = item * n * c * (h * w + ho * wo)
+            flops = 2 * k * n * c * ho * (w + pad[0] + pad[1] + wo)
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            flops_ms = 1e3 * flops / F32_FLOP_PER_S
+            bound_ms = max(bytes_ms, flops_ms)
+            rows.append(dict(
+                who=case["who"], shape=list(shape), pad=list(pad),
+                up=case["up"], per_step=case["per_step"], dtype=name,
+                path="vector" if plan.vector else "scalar", ms=ms,
+                cold_ms=cold_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bytes=nbytes, flops=flops,
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                copy_bound_ms=1e3 * nbytes / copy_bps))
+            plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+            log(f"  blur {name:8s} {case['who']:6s} {str(shape):20s} pad "
+                f"{pad} up {case['up']} x{case['per_step']}/step "
+                f"[{rows[-1]['path']}]: kernel {ms:.4f} ms warm, "
+                f"{cold_ms:.4f} cold, bound {bound_ms:.4f} ms "
+                f"({100 * bound_ms / ms:.0f} % warm, "
+                f"{100 * bound_ms / cold_ms:.0f} % cold), depthwise conv "
+                f"{library_ms:.4f} ms{plain}")
+            del x
     return rows
+
+
+def blur_host_us(blur, calls: int = 200) -> dict:
+    """Host time of one call of the wrapper (``blur2d``, autograd Function
+    and all) and of the launch alone (``_launch``), microseconds, at the
+    smallest main-path shape, whose kernel the card finishes faster than the
+    host issues it."""
+    import torch
+
+    x = torch.randn(BATCH, 8, 8, 512, device="cuda")
+    taps = case_taps(dict(up=1, adjoint=False))
+    out = {}
+    for what, fn in (("blur2d", blur.blur2d), ("_launch", blur._launch)):
+        for _ in range(10):
+            fn(x, *taps, (1, 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(x, *taps, (1, 1))
+        out[what] = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+    return out
 
 
 # ------------------------------------------------------------ main path
@@ -214,9 +325,9 @@ def train(steps: int):
                      f"options.batch_size={BATCH}",
                      f"options.max_steps={steps}"]
     torch.cuda.reset_peak_memory_stats()
-    blur.blur2d.launches = 0
+    blur.blur2d.launches = blur.blur2d.scalar_launches = 0
     history = main(argv)
-    launches = blur.blur2d.launches
+    launches, scalar = blur.blur2d.launches, blur.blur2d.scalar_launches
     peak = torch.cuda.max_memory_allocated()
     for rec in history:
         for k in ("D_loss", "D_penalty", "D_real", "D_gen", "D_r1", "G_loss"):
@@ -224,6 +335,9 @@ def train(steps: int):
                 raise AssertionError(f"step {rec['step']}: {k} = {rec[k]}")
     if launches == 0:
         raise AssertionError("the train step never launched the blur kernel")
+    if scalar:
+        raise AssertionError(f"{scalar} of the main path's blur launches "
+                             f"took the scalar path")
     timed = [r["seconds_per_step"] for r in history[1:]]
     ms_step = 1e3 * sum(timed) / len(timed)
     return dict(history=history, launches=launches,
@@ -341,11 +455,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cases = blur_cases()
-    log(f"[3] blur kernel vs plain version at {len(cases)} main-path cases")
+    per_step = sum(c["per_step"] for c in cases)
+    log(f"[3] blur kernel vs plain version at {len(cases)} cases "
+        f"({sum(c['per_step'] > 0 for c in cases)} of the main path, "
+        f"{per_step} launches per step)")
     max_err = check_blur(blur, cases)
     copy_bps = copy_bandwidth()
     log(f"  device-to-device copy: {copy_bps / 1e9:.1f} GB/s")
     rows = time_blur(blur, cases, copy_bps)
+    step_sum = {f"{dtype} {when}": sum(
+        r["per_step"] * r[when] for r in rows if r["dtype"] == dtype)
+        for dtype in ("float32", "bfloat16") for when in ("ms", "cold_ms")}
+    host_us = blur_host_us(blur)
+    log(f"  wrapper host time per call: {host_us['blur2d']:.2f} us "
+        f"(blur2d), {host_us['_launch']:.2f} us (_launch)")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
 
     log(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
@@ -355,13 +478,21 @@ def main() -> int:
         f" per step); {run['ms_per_step']:.2f} ms/step after the first, "
         f"{run['img_per_s']:.1f} img/s; peak memory "
         f"{run['peak_bytes'] / 2**30:.3f} GiB")
+    if run["launches_per_step"] != per_step:
+        raise AssertionError(f"{run['launches_per_step']} blur launches per "
+                             f"step, not the {per_step} that phase 3 times")
     prof = profile_step()
+    log(f"  blur kernel per step: {prof['blur_ms_per_step']:.3f} ms under "
+        f"the profiler; phase 3's times weighted by launches per step: "
+        f"{step_sum['float32 ms']:.3f} ms warm, "
+        f"{step_sum['float32 cold_ms']:.3f} ms cold (float32)")
 
     torch.backends.cudnn.allow_tf32 = False
     log("[5] G and D forwards, card vs CPU")
     model_err = model_reference_check()
 
-    big = max(rows, key=lambda r: r["bytes"])
+    big = max((r for r in rows if r["per_step"] and r["dtype"] == "float32"),
+              key=lambda r: r["bytes"])
     kernels = [{
         "name": "blur2d", "route": "cuda",
         "source": "contrad_tpu_torch/csrc/blur2d.cu",
@@ -375,6 +506,7 @@ def main() -> int:
         args.out.write_text(json.dumps(dict(
             card=card, kind=kind, build_s=build_s, blur_cases=rows,
             blur_max_abs_err=max_err, copy_bytes_per_s=copy_bps,
+            blur_ms_per_step_from_cases=step_sum, blur_host_us=host_us,
             train={k: v for k, v in run.items()}, profile=prof,
             model_max_abs_err=model_err, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

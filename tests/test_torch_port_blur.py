@@ -109,3 +109,117 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
                                   (1, 2)))
     assert port_blur.blur2d.launches == before
 
+
+
+# ------------------------------------------------------------ launch plan
+# ``launch_plan`` is the wrapper's choice of path and work split for the CUDA
+# kernel; it is plain Python, so it is tested here. ``_emulate_kernel`` runs
+# the kernel's schedule (blocks, threads, the ring of input rows, the
+# register window of vertical partial sums) in numpy from a plan, in float64:
+# it shows that every output element is written exactly once, with the right
+# value, for the plans the wrapper makes.
+
+def _main_path_cases():
+    from chip_smoke import blur_cases
+
+    return [(c["shape"], c["pad"]) for c in blur_cases() if c["per_step"]]
+
+
+def _emulate_kernel(x, taps_v, taps_h, pad, plan):
+    n, h, w, c = x.shape
+    k, gb, vec = plan.k, plan.gb, c // plan.groups
+    xg = x.reshape(n, h, w, plan.groups, vec)
+    y = np.full((n, plan.ho, plan.wo, plan.groups, vec), np.nan)
+    t = np.arange(plan.threads)
+    for strip in range(plan.strips):
+        for seg in range(plan.nseg):
+            for cs in range(plan.csplit):
+                oh0, ow0, g0 = strip * plan.rows, seg * plan.wseg, cs * gb
+                rows_in = min(plan.rows, plan.ho - oh0) + k - 1
+                s = np.arange((plan.wseg + k - 1) * gb)  # one ring row
+                assert len(s) <= k * plan.threads  # <= k copies a thread
+                iw, g = ow0 - plan.pad0 + s // gb, g0 + s % gb
+                col_ok = (iw >= 0) & (iw < w) & (g < plan.groups)
+                col, gl = t // gb, t % gb
+                act = (col < min(plan.wseg, plan.wo - ow0)) & (
+                    g0 + gl < plan.groups)
+                col, gl = col[act], gl[act]
+                acc = np.zeros((k, n, len(col), vec))
+                for r in range(rows_in):
+                    ih = oh0 + r - plan.pad0
+                    ring = np.zeros((n, len(s), vec))
+                    if 0 <= ih < h:
+                        ring[:, col_ok] = xg[:, ih, iw[col_ok], g[col_ok]]
+                    hs = sum(taps_h[a] * ring[:, (col + a) * gb + gl]
+                             for a in range(k))
+                    for j in range(k):
+                        acc[j] += taps_v[k - 1 - j] * hs
+                    if r >= k - 1:
+                        out = y[:, oh0 + r - k + 1, ow0 + col, g0 + gl]
+                        assert np.isnan(out).all()  # written once
+                        y[:, oh0 + r - k + 1, ow0 + col, g0 + gl] = acc[0]
+                    acc = np.concatenate([acc[1:], np.zeros_like(acc[:1])])
+    assert not np.isnan(y).any()  # written everywhere
+    return y.reshape(n, plan.ho, plan.wo, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_puts_the_main_path_on_the_vector_path(dtype):
+    cases = _main_path_cases()
+    assert len(cases) == 30  # 15 forward shapes and their adjoints
+    for shape, pad in cases:
+        plan = port_blur.launch_plan(shape, 4, pad, dtype)
+        assert plan.vector == 1 and plan.groups * 16 // dtype.itemsize == shape[3]
+        assert plan.threads % 32 == 0 and plan.threads <= port_blur._MAX_THREADS
+        assert plan.smem <= 48 * 1024
+        # no thread slot outside the output but the last warp's rounding
+        assert plan.threads - plan.wseg * plan.gb < 32
+        assert plan.wseg * (plan.nseg - 1) < plan.wo <= plan.wseg * plan.nseg
+        assert plan.rows * (plan.strips - 1) < plan.ho <= plan.rows * plan.strips
+        # at least two blocks for each of the card's 132 SMs
+        assert plan.n * plan.strips * plan.nseg * plan.csplit >= 2 * 132
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,vector", [
+    ((2, 8, 8, 5), torch.float32, True, 0),
+    ((2, 8, 8, 37), torch.bfloat16, True, 0),
+    ((2, 8, 8, 4), torch.float32, True, 1),
+    ((2, 8, 8, 12), torch.bfloat16, True, 0),
+    ((2, 8, 8, 128), torch.float32, False, 0),
+    ((2, 8, 8, 128), torch.bfloat16, False, 0),
+])
+def test_launch_plan_takes_the_scalar_path_where_packs_do_not_fit(
+        shape, dtype, aligned, vector):
+    plan = port_blur.launch_plan(shape, 4, (1, 1), dtype, aligned=aligned)
+    assert plan.vector == vector
+    assert plan.groups == shape[3] // (16 // dtype.itemsize if vector else 1)
+    assert plan.csplit * plan.gb >= plan.groups > (plan.csplit - 1) * plan.gb
+
+
+def test_launch_plan_refuses_more_images_than_the_grid_holds():
+    with pytest.raises(ValueError):
+        port_blur.launch_plan((65536, 4, 4, 8), 4, (1, 1), torch.float32)
+
+
+@pytest.mark.parametrize("shape,pad,k,dtype", [
+    ((2, 9, 9, 512), (1, 1), 4, torch.float32),  # G's 8->16 blur, 4 splits
+    ((2, 30, 30, 128), (2, 2), 4, torch.float32),  # a short last strip
+    ((2, 31, 31, 128), (2, 2), 4, torch.bfloat16),  # an adjoint shape
+    ((2, 40, 300, 32), (0, 3), 4, torch.float32),  # several width segments
+    ((1, 12, 13, 16), (3, 0), 4, torch.bfloat16),
+    ((3, 17, 9, 37), (2, 1), 4, torch.float32),  # scalar, two channel splits
+    ((3, 17, 9, 5), (1, 2), 4, torch.bfloat16),
+    ((2, 10, 7, 16), (1, 1), 3, torch.float32),
+    ((2, 10, 7, 16), (1, 0), 2, torch.float32),
+    ((2, 10, 7, 16), (0, 0), 1, torch.float32),
+])
+def test_kernel_schedule_covers_the_output_once_and_matches_plain(
+        shape, pad, k, dtype):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=shape)
+    taps_v = tuple(rng.uniform(0.1, 1.0, size=k))
+    taps_h = tuple(rng.uniform(0.1, 1.0, size=k))
+    plan = port_blur.launch_plan(shape, k, pad, dtype)
+    got = _emulate_kernel(x, taps_v, taps_h, pad, plan)
+    want = port_blur.blur2d_plain(torch.from_numpy(x), taps_v, taps_h, pad)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-12, atol=1e-12)
