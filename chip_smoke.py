@@ -25,7 +25,20 @@ result line:
    counts, and never on its scalar path; then a torch.profiler breakdown
    of three more steps (device time by kernel, idle share);
 5. G and D forwards on the card against the same modules on the CPU (plain
-   versions) on a small input.
+   versions) on a small input;
+6. the SNDCGAN + ContraD flagship, which runs no hand-written kernel (its
+   TPU version reached no Pallas kernel): 6 steps of
+   ``python -m contrad_tpu_torch.train_gan`` with the README recipe
+   (``c10_b512.toml sndcgan --mode contrad --aug simclr --use_warmup``,
+   full width, batch 512) and 3 of the README's ``std`` baseline
+   (``c10_b64.toml``, batch 64), on synthetic 32x32 data, with the blur's
+   launch count set to 0 just before each and read just after (it must
+   stay 0); losses must be finite; ms/step, img/s and peak memory; then a
+   torch.profiler breakdown of 3 flagship steps (kernel time by class, the
+   25 largest kernels, the idle share, launches per step); then one
+   flagship ``GANTrainer`` step on the card against the same step on the
+   CPU (same weights and draws, TF32 off, batch 64): losses, parameters,
+   spectral norm's ``u`` and the batch-norm statistics.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``. It needs the repository
@@ -61,6 +74,11 @@ RECIPE = ["configs/gan/stylegan2/c10_style64.toml", "stylegan2",
           "--no_lazy", "--halflife_k", "1000", "--use_warmup"]
 BATCH = 64
 STEPS = 6  # the first is warm-up: the step time is the mean of the others
+# the README's SNDCGAN recipes (batch from the config), synthetic data
+FLAGSHIP = ["configs/gan/cifar10/c10_b512.toml", "sndcgan", "--mode",
+            "contrad", "--aug", "simclr", "--use_warmup"]
+GAN_BASELINE = ["configs/gan/cifar10/c10_b64.toml", "sndcgan", "--mode", "std"]
+GAN_LOSSES = ("D_loss", "D_penalty", "D_real", "D_gen", "G_loss")
 
 
 def log(msg: str) -> None:
@@ -345,13 +363,35 @@ def train(steps: int):
                 img_per_s=BATCH / (ms_step * 1e-3), peak_bytes=peak)
 
 
+def profile_rows(step, steps: int):
+    """Run ``step()`` ``steps`` times under torch.profiler; returns the wall
+    ms per step and (ms per step, launches per step, name) per kernel, the
+    kernels' own device time summed by name, largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()  # kernels, not annotations
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    rows = sorted(((e.self_device_time_total / steps / 1e3,
+                    e.count / steps, e.key) for e in kernels), reverse=True)
+    return wall_ms, rows
+
+
 def profile_step(steps: int = 3):
     """Device time by kernel over a few train steps (torch.profiler): the
     kernels' own time, summed by name, and the device's idle share of the
     wall time of those steps (under the profiler)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from contrad_tpu_torch.train_stylegan2 import build, parse_args
 
@@ -360,26 +400,15 @@ def profile_step(steps: int = 3):
     _, loader, trainer = build(P)
     for _ in range(2):
         trainer.train_step(next(loader), do_r1=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(next(loader), do_r1=True)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.key_averages()  # kernels, not annotations
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    rows = sorted(((e.self_device_time_total / steps / 1e3,
-                    e.count // steps, e.key) for e in kernels), reverse=True)
+    wall_ms, rows = profile_rows(
+        lambda: trainer.train_step(next(loader), do_r1=True), steps)
     busy = sum(r[0] for r in rows)
     blur_ms = sum(r[0] for r in rows if "blur2d_kernel" in r[2])
     log(f"  profile: {wall_ms:.2f} ms/step wall, kernels {busy:.2f} ms/step "
         f"(idle {100 * (1 - busy / wall_ms):.1f} %), blur kernel "
         f"{blur_ms:.3f} ms/step ({100 * blur_ms / busy:.1f} % of kernels)")
     for ms, count, key in rows[:25]:
-        log(f"    {ms:8.3f} ms/step  x{count:<4d} {key[:100]}")
+        log(f"    {ms:8.3f} ms/step  x{count:<4.0f} {key[:100]}")
     return dict(wall_ms_per_step=wall_ms, kernel_ms_per_step=busy,
                 idle_share=1 - busy / wall_ms, blur_ms_per_step=blur_ms,
                 kernels=[dict(ms=ms, count=c, name=k) for ms, c, k in rows])
@@ -417,6 +446,160 @@ def model_reference_check() -> float:
         if not err <= limit:
             raise AssertionError(f"{what}: card and CPU disagree: {err}")
         worst = max(worst, err)
+    return worst
+
+
+# ------------------------------------------------------- SNDCGAN flagship
+
+def train_gan(recipe, steps: int):
+    """``steps`` steps of ``contrad_tpu_torch.train_gan`` with ``recipe`` on
+    synthetic 32x32 data; the blur kernel must not launch."""
+    import torch
+
+    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.train_gan import main
+
+    argv = recipe + ["--print_every", "1", "--seed", "0", "--override",
+                     "options.dataset=synthetic_32",
+                     f"options.max_steps={steps}"]
+    torch.cuda.reset_peak_memory_stats()
+    blur.blur2d.launches = blur.blur2d.scalar_launches = 0
+    history = main(argv)
+    launches = blur.blur2d.launches
+    peak = torch.cuda.max_memory_allocated()
+    for rec in history:
+        for k in GAN_LOSSES:
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"step {rec['step']}: {k} = {rec[k]}")
+    if launches:
+        raise AssertionError(f"the SNDCGAN path launched the blur kernel "
+                             f"{launches} times")
+    from contrad_tpu_torch.config import default_config_files, load_config
+
+    batch = load_config(default_config_files(recipe[0])).options.batch_size
+    timed = [r["seconds_per_step"] for r in history[1:]]
+    ms_step = 1e3 * sum(timed) / len(timed)
+    return dict(history=history, batch=batch, blur_launches=launches,
+                ms_per_step=ms_step, img_per_s=batch / (ms_step * 1e-3),
+                peak_bytes=peak)
+
+
+def kernel_class(name: str) -> str:
+    """A CUDA kernel's class, from its name."""
+    n = name.lower()
+    for cls, keys in (
+            ("layout transpose", ("nchwtonhwc", "nhwctonchw")),
+            ("batch norm", ("batch_norm", "batchnorm", "welford")),
+            ("convolution", ("conv", "dgrad", "wgrad", "fprop",
+                             "implicit_gemm", "xmma_fprop", "cudnn")),
+            ("matmul", ("gemm", "gemv", "cublas", "cutlass", "sm90_xmma")),
+            ("optimizer", ("multi_tensor", "adam", "foreach")),
+            ("copy", ("copy", "cat", "transpose", "permute")),
+            ("reduction", ("reduce", "norm", "softmax", "argmax", "sum")),
+            ("elementwise", ("elementwise", "vectorized", "unrolled",
+                             "where", "index"))):
+        if any(k in n for k in keys):
+            return cls
+    return "other"
+
+
+def profile_gan(steps: int = 3):
+    """torch.profiler over ``steps`` flagship steps (after 2 untimed ones):
+    kernel time by class, the largest kernels, idle share, launches."""
+    from contrad_tpu_torch.train_gan import build, parse_args
+
+    P = parse_args(FLAGSHIP + ["--seed", "0", "--override",
+                               "options.dataset=synthetic_32"])
+    _, loader, trainer = build(P)
+    for _ in range(2):
+        trainer.train_step(next(loader))
+    wall_ms, rows = profile_rows(lambda: trainer.train_step(next(loader)),
+                                 steps)
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    classes = {}
+    for ms, count, key in rows:
+        c = classes.setdefault(kernel_class(key), [0.0, 0.0])
+        c[0] += ms
+        c[1] += count
+    log(f"  profile: {wall_ms:.2f} ms/step wall, kernels {busy:.2f} ms/step "
+        f"(idle {100 * (1 - busy / wall_ms):.1f} %), {launches:.0f} kernel "
+        f"launches per step")
+    for cls, (ms, count) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        log(f"    class {cls:12s} {ms:8.3f} ms/step ({100 * ms / busy:5.1f} %)"
+            f"  x{count:.0f}")
+    for ms, count, key in rows[:25]:
+        log(f"    {ms:8.3f} ms/step  x{count:<4.0f} {key[:100]}")
+    return dict(wall_ms_per_step=wall_ms, kernel_ms_per_step=busy,
+                idle_share=1 - busy / wall_ms, launches_per_step=launches,
+                classes={k: dict(ms=v[0], count=v[1])
+                         for k, v in classes.items()},
+                kernels=[dict(ms=ms, count=c, name=k) for ms, c, k in rows])
+
+
+def _to(obj, device):
+    """``obj`` (draws: tensors in dicts, lists and named tuples) on
+    ``device``."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to(v, device) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(v, device) for v in obj)
+    return obj
+
+
+def gan_card_vs_cpu(batch: int = 64) -> float:
+    """One flagship GANTrainer step (sndcgan at full width, contrad, simclr,
+    nonsat, Adam with warmup) on the card and on the CPU, from the same
+    weights, images and draws, float32 with TF32 off: the losses and every
+    parameter and buffer after the step (``u``, batch-norm statistics)."""
+    import torch
+
+    from contrad_tpu_torch.augment import get_augment
+    from contrad_tpu_torch.models import get_architecture
+    from contrad_tpu_torch.training import GANTrainer, ScheduledAdam
+
+    images = torch.rand(batch, 32, 32, 3,
+                        generator=torch.Generator().manual_seed(3))
+    draws, out = None, {}
+    for device in ("cpu", "cuda"):
+        G, D = get_architecture("sndcgan", (32, 32, 3), device=device, seed=1)
+
+        def adam(m):
+            return ScheduledAdam(m.parameters(), 2e-4, (0.5, 0.999),
+                                 warmup=3000, use_warmup=True)
+
+        trainer = GANTrainer(G, D, mode="contrad",
+                             augment=get_augment("simclr"),
+                             g_optimizer=adam(G), d_optimizer=adam(D),
+                             loss_type="nonsat")
+        if draws is None:
+            draws = trainer.draw_step(images.shape)
+        metrics = trainer.train_step(images.to(device),
+                                     draws=_to(draws, device))
+        state = {f"G.{k}": v for k, v in G.state_dict().items()}
+        state.update({f"D.{k}": v for k, v in D.state_dict().items()})
+        out[device] = ({k: v.reshape(1) for k, v in metrics.items()}, state)
+    worst = 0.0
+    for what, i in (("loss", 0), ("state", 1)):
+        for k, want in out["cpu"][i].items():
+            got = out["cuda"][i][k].cpu()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flagship step on the card: {k} is not "
+                                     f"finite")
+            err = float((got - want).abs().max())
+            limit = MODEL_TOL[0] + MODEL_TOL[1] * float(want.abs().max())
+            if what == "loss" or k.endswith(".u") or "running" in k:
+                log(f"  {k:32s} max|card - cpu| {err:.3e} (tol {limit:.3e})")
+            if not err <= limit:
+                raise AssertionError(f"flagship step: {k}: card and CPU "
+                                     f"disagree: {err} > {limit}")
+            worst = max(worst, err)
     return worst
 
 
@@ -491,6 +674,21 @@ def main() -> int:
     log("[5] G and D forwards, card vs CPU")
     model_err = model_reference_check()
 
+    log("[6] the SNDCGAN + ContraD flagship (no hand-written kernel on its "
+        "path)")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    flagship = train_gan(FLAGSHIP, STEPS)
+    baseline = train_gan(GAN_BASELINE, 3)
+    for name, r in (("flagship contrad, batch", flagship),
+                    ("std baseline, batch", baseline)):
+        log(f"  {name} {r['batch']}: {r['ms_per_step']:.2f} ms/step after "
+            f"the first, {r['img_per_s']:.1f} img/s; peak memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB; blur launches "
+            f"{r['blur_launches']}; TF32 convs on, TF32 matmuls off")
+    gan_prof = profile_gan()
+    torch.backends.cudnn.allow_tf32 = False
+    gan_err = gan_card_vs_cpu()
+
     big = max((r for r in rows if r["per_step"] and r["dtype"] == "float32"),
               key=lambda r: r["bytes"])
     kernels = [{
@@ -508,7 +706,11 @@ def main() -> int:
             blur_max_abs_err=max_err, copy_bytes_per_s=copy_bps,
             blur_ms_per_step_from_cases=step_sum, blur_host_us=host_us,
             train={k: v for k, v in run.items()}, profile=prof,
-            model_max_abs_err=model_err, kernels=kernels), indent=1))
+            model_max_abs_err=model_err, kernels=kernels,
+            sndcgan=dict(card=card, flagship=flagship, std_baseline=baseline,
+                         profile=gan_prof, card_vs_cpu_max_abs_err=gan_err,
+                         tf32="convs on, matmuls off (card vs CPU: off)")),
+            indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

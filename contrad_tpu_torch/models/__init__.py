@@ -2,6 +2,7 @@
 
 ``get_architecture(name, image_size, device)`` returns ``(G, D)`` modules on
 ``device``:
+  * ``sndcgan``        — G_SNDCGAN + D_SNDCGAN(mlp_linear, d_hidden=512)
   * ``stylegan2``      — small32 StyleGAN2 G + ResidualDiscriminatorP(d_hidden=512)
   * ``stylegan2_tiny`` — test width (0.25x channels, n_mlp=2, d_hidden=32)
 """
@@ -23,11 +24,12 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
                      ) -> Tuple[nn.Module, Discriminator]:
     """Build (G, D) in float32 on ``device``; ``seed`` makes the random
     initialisation reproducible."""
+    from contrad_tpu_torch.models.sndcgan import DSndcgan, GSndcgan
     from contrad_tpu_torch.models.stylegan2 import DStylegan2, GStylegan2
 
     device = resolve_device(device)
     resolution = image_size[0]
-    if architecture not in ("stylegan2", "stylegan2_tiny"):
+    if architecture not in ("sndcgan", "stylegan2", "stylegan2_tiny"):
         raise NotImplementedError(f"unknown architecture: {architecture}")
     # Parameters are drawn on the CPU from a forked global generator, so a
     # seed gives the same weights on every device and the caller's random
@@ -35,7 +37,10 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
     with torch.random.fork_rng(devices=[]):
         if seed is not None:
             torch.manual_seed(seed)
-        if architecture == "stylegan2":
+        if architecture == "sndcgan":
+            generator = GSndcgan(image_size)
+            discriminator = DSndcgan(image_size, d_hidden=512)
+        elif architecture == "stylegan2":
             generator = GStylegan2(size=resolution, n_mlp=8, small32=True)
             discriminator = DStylegan2(size=resolution, small32=True,
                                        d_hidden=512)

@@ -7,6 +7,11 @@ heads: ``linear``, the GAN score head (a 2-layer LeakyReLU(0.1) MLP, the
 supervised-contrastive losses. With ``sg_linear=True`` the GAN head sees
 detached features, so the backbone learns only from the contrastive losses
 (the ContraD mechanism, reference ``base.py:123-126``).
+
+``train`` and ``persist`` reach every spectral-norm layer (backbone and
+heads): ``train`` runs one power iteration, ``persist`` stages its new ``u``
+for :func:`contrad_tpu_torch.ops.spectral_norm.commit_u`; the analogue of the
+JAX package's ``update_state`` (``training/step.py::make_d_apply``).
 """
 
 from __future__ import annotations
@@ -17,55 +22,66 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contrad_tpu_torch.ops.spectral_norm import SNDense
+from contrad_tpu_torch.ops.spectral_norm import Init, SNDense, lecun_normal_
 
 
 class TinyDiscriminatorHead(nn.Module):
     """2-layer GAN score head (reference TinyDiscriminator, base.py:14-35)."""
 
     def __init__(self, n_features: int, d_hidden: int = 128,
-                 use_sn: bool = False):
+                 use_sn: bool = False, init: Init = lecun_normal_):
         super().__init__()
-        self.l1 = SNDense(n_features, d_hidden, use_sn=use_sn)
-        self.l2 = SNDense(d_hidden, 1, use_sn=use_sn)
+        self.l1 = SNDense(n_features, d_hidden, use_sn=use_sn, init=init)
+        self.l2 = SNDense(d_hidden, 1, use_sn=use_sn, init=init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.l2(F.leaky_relu(self.l1(x), 0.1))
+    def forward(self, x: torch.Tensor, train: bool = True,
+                persist: bool = True) -> torch.Tensor:
+        h = F.leaky_relu(self.l1(x, train, persist), 0.1)
+        return self.l2(h, train, persist)
 
 
 class ProjectionMLP(nn.Module):
     """d_penul -> d_hidden -> d_project with LeakyReLU(0.1) (base.py:92-101)."""
 
     def __init__(self, n_features: int, d_hidden: int, d_project: int,
-                 use_sn: bool = False):
+                 use_sn: bool = False, init: Init = lecun_normal_):
         super().__init__()
-        self.fc1 = SNDense(n_features, d_hidden, use_sn=use_sn)
-        self.fc2 = SNDense(d_hidden, d_project, use_sn=use_sn)
+        self.fc1 = SNDense(n_features, d_hidden, use_sn=use_sn, init=init)
+        self.fc2 = SNDense(d_hidden, d_project, use_sn=use_sn, init=init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.leaky_relu(self.fc1(x), 0.1))
+    def forward(self, x: torch.Tensor, train: bool = True,
+                persist: bool = True) -> torch.Tensor:
+        h = F.leaky_relu(self.fc1(x, train, persist), 0.1)
+        return self.fc2(h, train, persist)
 
 
 class Discriminator(nn.Module):
     """Backbone + {linear, projection, projection2} heads. The backbone maps
-    an NHWC image batch in [0, 1] to (N, d_penul) features."""
+    an NHWC image batch in [0, 1] to (N, d_penul) features and takes
+    ``train`` and ``persist`` as the heads do. ``head_init`` initialises the
+    heads' weights (lecun-normal, or N(0, 0.02) for SNDCGAN)."""
 
     def __init__(self, backbone: nn.Module, d_penul: int, d_hidden: int = 128,
-                 d_project: int = 128, use_sn: bool = False):
+                 d_project: int = 128, use_sn: bool = False,
+                 head_init: Init = lecun_normal_):
         super().__init__()
         self.backbone = backbone
-        self.linear = TinyDiscriminatorHead(d_penul, d_hidden, use_sn)
-        self.projection = ProjectionMLP(d_penul, d_hidden, d_project, use_sn)
-        self.projection2 = ProjectionMLP(d_penul, d_hidden, d_project, use_sn)
+        self.linear = TinyDiscriminatorHead(d_penul, d_hidden, use_sn,
+                                            head_init)
+        self.projection = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
+                                        head_init)
+        self.projection2 = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
+                                         head_init)
 
-    def forward(self, x: torch.Tensor, sg_linear: bool = False
+    def forward(self, x: torch.Tensor, sg_linear: bool = False,
+                train: bool = True, persist: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Returns (d, aux) with aux = {penultimate, projection, projection2}."""
-        feats = self.backbone(x)
-        d = self.linear(feats.detach() if sg_linear else feats)
+        feats = self.backbone(x, train, persist)
+        d = self.linear(feats.detach() if sg_linear else feats, train, persist)
         return d, {"penultimate": feats,
-                   "projection": self.projection(feats),
-                   "projection2": self.projection2(feats)}
+                   "projection": self.projection(feats, train, persist),
+                   "projection2": self.projection2(feats, train, persist)}
 
 
 def l2_normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

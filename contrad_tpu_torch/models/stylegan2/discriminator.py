@@ -70,7 +70,10 @@ class ResidualBackbone(nn.Module):
         self.last_conv = ConvLayer(channels[4] + 1, channels[4], 3,
                                    activate=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True,
+                persist: bool = True) -> torch.Tensor:
+        """``train`` and ``persist`` are the Discriminator protocol's; this
+        backbone has no spectral norm and no state, so both are no-ops."""
         x = self.from_rgb(x * 2.0 - 1.0)
         for name in self.block_names:
             x = getattr(self, name)(x)

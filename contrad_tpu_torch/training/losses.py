@@ -1,6 +1,7 @@
 """GAN and contrastive losses (the port of ``contrad_tpu/training/losses.py``:
-``nt_xent``, ``supcon_fake``, and the ``nonsat`` GAN losses). The loss math
-is float32, and self-similarity is masked with -5e4 as in the reference."""
+``nt_xent``, ``supcon_fake``, and the ``nonsat``, ``wgan``, ``hinge`` and
+``lsgan`` GAN losses). The loss math is at least float32, and
+self-similarity is masked with -5e4 as in the reference."""
 
 from __future__ import annotations
 
@@ -54,14 +55,24 @@ def supcon_fake(out1: torch.Tensor, out2: torch.Tensor, others: torch.Tensor,
 def gan_d_loss(d_real: torch.Tensor, d_gen: torch.Tensor,
                loss_type: str) -> torch.Tensor:
     """Discriminator GAN loss (reference ``std.py:14-25``)."""
-    if loss_type != "nonsat":
-        raise NotImplementedError(f"GAN loss {loss_type!r} is not ported yet")
-    return (F.softplus(at_least_f32(d_gen)).mean()
-            + F.softplus(-at_least_f32(d_real)).mean())
+    d_real, d_gen = at_least_f32(d_real), at_least_f32(d_gen)
+    if loss_type == "nonsat":
+        return F.softplus(d_gen).mean() + F.softplus(-d_real).mean()
+    if loss_type == "wgan":
+        return d_gen.mean() - d_real.mean()
+    if loss_type == "hinge":
+        return F.relu(1.0 + d_gen).mean() + F.relu(1.0 - d_real).mean()
+    if loss_type == "lsgan":
+        return 0.5 * (((d_real - 1.0) ** 2).mean() + (d_gen ** 2).mean())
+    raise NotImplementedError(f"unknown GAN loss: {loss_type}")
 
 
 def gan_g_loss(d_gen: torch.Tensor, loss_type: str) -> torch.Tensor:
-    """Generator GAN loss (reference ``std.py:40-48``)."""
-    if loss_type != "nonsat":
-        raise NotImplementedError(f"GAN loss {loss_type!r} is not ported yet")
-    return F.softplus(-at_least_f32(d_gen)).mean()
+    """Generator GAN loss (reference ``std.py:40-48``): nonsat and lsgan have
+    their own forms, every other loss uses -E[d_gen]."""
+    d_gen = at_least_f32(d_gen)
+    if loss_type == "nonsat":
+        return F.softplus(-d_gen).mean()
+    if loss_type == "lsgan":
+        return 0.5 * ((d_gen - 1.0) ** 2).mean()
+    return -d_gen.mean()

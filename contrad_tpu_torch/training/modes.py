@@ -1,20 +1,38 @@
-"""Training modes (the port of ``contrad_tpu/training/modes.py``; the
-``contrad`` mode).
+"""Training modes (the port of ``contrad_tpu/training/modes.py``; reference
+``training/gan/{std,aug,aug_both,simclr_only,contrad}.py``).
 
-``loss_D(ctx, D, images, gen_images, aug_params)`` -> (total, metrics) and
-``loss_G(ctx, D, gen_images, aug_params)`` -> g_loss. The augmentation's
-parameters are arguments, drawn by the caller (``ctx.augment.sample``).
+``loss_D(ctx, D, images, gen_images, draws)`` -> (total, metrics) and
+``loss_G(ctx, D, gen_images, aug_params)`` -> g_loss. ``draws`` is a
+:class:`Draws`: the parameters of the mode's augmentation of the D batch
+and the penalty's draws, made by the caller (:func:`draw_d`), so the tests
+can pass the draws JAX made. The total is ``d_loss + penalty`` as the
+reference trainer adds them; the metrics carry D_loss, D_penalty, D_real
+and D_gen.
+
+  * ``std``         — GAN loss on [real, fake]; penalty configurable.
+  * ``aug``         — augments the reals only in the D loss; G unaugmented.
+  * ``aug_both``    — augments [real, fake] in D and the fakes in G; it has
+                      no lsgan branch.
+  * ``simclr_only`` — D trained by NT-Xent on two views of the reals alone; G
+                      against the (GAN-untrained) head on augmented fakes.
+  * ``contrad``     — one D pass over augmented [real, real, fake] with the
+                      GAN head on detached features; backbone loss NT-Xent +
+                      lbd_a * supcon, the GAN head's loss in the penalty slot.
+
+Each mode's main D pass persists the spectral-norm state (``D(x)``); the
+penalties' passes do not.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from contrad_tpu_torch import at_least_f32
 from contrad_tpu_torch.models.base import l2_normalize_rows
+from contrad_tpu_torch.training import penalty as penalties
 from contrad_tpu_torch.training.losses import (
     gan_d_loss, gan_g_loss, nt_xent, supcon_fake)
 
@@ -27,16 +45,80 @@ class ModeCtx:
     loss_type: str
     temp: float = 0.1
     lbd_a: float = 1.0
+    penalty: str = "none"
+    lbd: float = 10.0
+    lbd2: float = 10.0
 
 
-def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, aug_params
+class Draws(NamedTuple):
+    """The random draws of one D loss."""
+
+    aug: Any = None  # the mode's augmentation of the D batch
+    penalty: Any = None  # penalty.sample(...)
+
+
+def _metrics(d_loss, penalty, d_real, d_gen) -> Metrics:
+    return {"D_loss": d_loss, "D_penalty": penalty,
+            "D_real": d_real.mean(), "D_gen": d_gen.mean()}
+
+
+def _gan_loss_D(ctx, D, images, gen_images, d_input, all_images, draws):
+    """The GAN loss on ``D(d_input)`` = [real, fake] plus the penalty, which
+    gets ``all_images`` as the mode's [real, fake] batch."""
+    n = images.shape[0]
+    d_all, _ = D(d_input)
+    d_real, d_gen = d_all[:n], d_all[n:]
+    d_loss = gan_d_loss(d_real, d_gen, ctx.loss_type)
+    penalty = penalties.compute_penalty(
+        ctx, D, images=images, gen_images=gen_images, all_images=all_images,
+        d_real=d_real, d_gen=d_gen, params=draws.penalty)
+    return d_loss + penalty, _metrics(d_loss, penalty, d_real, d_gen)
+
+
+def std_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+    gen_images = gen_images.detach()
+    all_images = torch.cat([images, gen_images], dim=0)
+    return _gan_loss_D(ctx, D, images, gen_images, all_images, all_images,
+                       draws)
+
+
+def aug_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+    gen_images = gen_images.detach()
+    all_images = torch.cat([ctx.augment.apply(images, draws.aug), gen_images],
+                           dim=0)
+    return _gan_loss_D(ctx, D, images, gen_images, all_images, all_images,
+                       draws)
+
+
+def aug_both_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+    if ctx.loss_type == "lsgan":
+        raise NotImplementedError(
+            "aug_both has no lsgan branch (reference aug_both.py)")
+    gen_images = gen_images.detach()
+    all_images = torch.cat([images, gen_images], dim=0)
+    return _gan_loss_D(ctx, D, images, gen_images,
+                       ctx.augment.apply(all_images, draws.aug), all_images,
+                       draws)
+
+
+def simclr_only_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+    n = images.shape[0]
+    real_images = torch.cat([images, images], dim=0)
+    _, aux = D(ctx.augment.apply(real_images, draws.aug))
+    views = l2_normalize_rows(at_least_f32(aux["projection"]))
+    simclr_loss = nt_xent(views[:n], views[n:], temperature=ctx.temp)
+    zero = 0.0 * simclr_loss
+    return simclr_loss, _metrics(simclr_loss, zero, zero, zero)
+
+
+def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws
                    ) -> Tuple[torch.Tensor, Metrics]:
     """Reference ``contrad.py:35-70``: one D pass over augmented
     [real, real, fake]; the GAN head sees detached features, so the
     backbone's gradient is purely contrastive."""
     n = images.shape[0]
     cat_images = torch.cat([images, images, gen_images.detach()], dim=0)
-    d_all, aux = D(ctx.augment.apply(cat_images, aug_params), sg_linear=True)
+    d_all, aux = D(ctx.augment.apply(cat_images, draws.aug), sg_linear=True)
 
     views = l2_normalize_rows(at_least_f32(aux["projection"]))
     simclr_loss = nt_xent(views[:n], views[n:2 * n], temperature=ctx.temp)
@@ -47,9 +129,14 @@ def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, aug_params
     d_real, d_gen = d_all[:n], d_all[2 * n:3 * n]
     head_loss = gan_d_loss(d_real, d_gen, ctx.loss_type)
     contrastive = simclr_loss + ctx.lbd_a * sup_loss
-    metrics = {"D_loss": contrastive, "D_penalty": head_loss,
-               "D_real": d_real.mean(), "D_gen": d_gen.mean()}
-    return contrastive + head_loss, metrics
+    return contrastive + head_loss, _metrics(contrastive, head_loss, d_real,
+                                             d_gen)
+
+
+def std_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
+    """G loss on the fakes as they are (``aug_params`` unused)."""
+    d_gen, _ = D(gen_images)
+    return gan_g_loss(d_gen, ctx.loss_type)
 
 
 def augmented_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
@@ -58,13 +145,40 @@ def augmented_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
     return gan_g_loss(d_gen, ctx.loss_type)
 
 
-_MODES: Dict[str, Tuple[Callable, Callable]] = {
-    "contrad": (contrad_loss_D, augmented_loss_G),
+def aug_both_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
+    """G loss on augmented fakes, lsgan read as wgan (the reference's
+    aug_both G loss has no lsgan branch; ``_augmented_loss_G``)."""
+    d_gen, _ = D(ctx.augment.apply(gen_images, aug_params))
+    loss_type = "wgan" if ctx.loss_type == "lsgan" else ctx.loss_type
+    return gan_g_loss(d_gen, loss_type)
+
+
+class Mode(NamedTuple):
+    loss_D: Callable
+    loss_G: Callable
+    d_aug_batches: int  # batches of N images the D loss augments (0: none)
+    g_aug: bool  # the G loss augments the fakes
+
+
+_MODES: Dict[str, Mode] = {
+    "std": Mode(std_loss_D, std_loss_G, 0, False),
+    "aug": Mode(aug_loss_D, std_loss_G, 1, False),
+    "aug_both": Mode(aug_both_loss_D, aug_both_loss_G, 2, True),
+    "simclr_only": Mode(simclr_only_loss_D, augmented_loss_G, 2, True),
+    "contrad": Mode(contrad_loss_D, augmented_loss_G, 3, True),
 }
 
 
-def get_mode(mode: str) -> Tuple[Callable, Callable]:
-    """Returns (loss_D, loss_G) for a training mode."""
+def get_mode(mode: str) -> Mode:
+    """The mode's losses and the shapes of their augmentation draws."""
     if mode not in _MODES:
-        raise NotImplementedError(f"training mode {mode!r} is not ported yet")
+        raise NotImplementedError(f"unknown training mode: {mode}")
     return _MODES[mode]
+
+
+def draw_d(mode: Mode, ctx: ModeCtx, shape: Tuple[int, ...], rng) -> Draws:
+    """The draws of one D loss on a real batch of ``shape`` (N, H, W, C)."""
+    n, rest = shape[0], tuple(shape[1:])
+    aug = (ctx.augment.sample((mode.d_aug_batches * n,) + rest, rng)
+           if mode.d_aug_batches else None)
+    return Draws(aug, penalties.sample(ctx.penalty, ctx.augment, shape, rng))

@@ -50,7 +50,10 @@ class ScheduledAdam:
 def ema_update(ema: torch.nn.Module, model: torch.nn.Module,
                decay: float) -> None:
     """In place: ``e = e * decay + p * (1 - decay)`` over all parameters
-    (reference ``utils.py:130-143`` accumulate)."""
+    (reference ``utils.py:130-143`` accumulate), and the buffers (G's batch
+    norm statistics) copied, as the JAX trainers copy G's state."""
     e = list(ema.parameters())
     torch._foreach_mul_(e, decay)
     torch._foreach_add_(e, list(model.parameters()), alpha=1.0 - decay)
+    for eb, b in zip(ema.buffers(), model.buffers(), strict=True):
+        eb.copy_(b)

@@ -1,46 +1,179 @@
-"""The StyleGAN2 train step (the port of
-``contrad_tpu/training/step.py::StyleGAN2Trainer._sg2_step``).
+"""The train steps (the port of ``contrad_tpu/training/step.py``:
+``GANTrainer._step`` and ``StyleGAN2Trainer._sg2_step``).
 
-Per step, as in the reference ``train_stylegan2.py:163-229``:
+:class:`GANTrainer`, ``train_gan.py``'s step (reference
+``train_gan.py:124-227``):
+  1. ``n_critic`` D sub-steps, each on a fresh real batch and fresh fakes:
+     G runs in train mode under ``no_grad`` (its batch-norm statistics
+     advance), then the mode's D loss, one Adam update of D, and D's
+     spectral-norm ``u`` committed;
+  2. one G update on fresh z against the updated D, which runs in train
+     mode there, so its ``u`` advances again;
+  3. optionally (``ema``) an EMA of G's parameters after the update, its
+     buffers copied.
+
+:class:`StyleGAN2Trainer`, ``train_stylegan2.py``'s (reference
+``train_stylegan2.py:163-229``):
   1. EMA of G with the PRE-update parameters;
   2. the G phase first: fresh z, noise and style mixing, augmented fakes,
      the mode's G loss, one Adam update of G;
   3. the D phase on the G phase's (detached, pre-update) fakes: the mode's D
      loss plus, when ``do_r1``, the R1 penalty on augmented detached reals
-     scaled by ``0.5 * lbd_r1 * d_reg_every``; one Adam update of D.
+     scaled by ``0.5 * lbd_r1 * d_reg_every``; one Adam update of D;
+  4. ``n_critic - 1`` more D sub-steps as in :class:`GANTrainer`.
 R1 is a gradient of a gradient through D, so the blur kernel's
-``autograd.Function`` runs forward, backward and double backward here.
+``autograd.Function`` runs forward, backward and double backward there.
 
-Every random draw comes from the trainer's :class:`AugRng`; the phase losses
-(:meth:`g_loss`, :meth:`d_loss`) take their draws as arguments, so the tests
-can feed the draws JAX made. A step never waits on the device: its metrics
-stay there until the caller reads them.
+Every random draw comes from the trainer's :class:`AugRng`, and every draw
+can be passed in instead (``train_step(..., draws=)``, the phases' and the
+phase losses' arguments), so the tests can feed the draws JAX made. A step
+never waits on the device: its metrics stay there until the caller reads
+them.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from contrad_tpu_torch import at_least_f32
 from contrad_tpu_torch.augment import AugRng
-from contrad_tpu_torch.training.modes import ModeCtx, get_mode
+from contrad_tpu_torch.ops.spectral_norm import commit_u
+from contrad_tpu_torch.training.modes import Draws, ModeCtx, draw_d, get_mode
 from contrad_tpu_torch.training.state import ScheduledAdam, ema_update
 
 Metrics = Dict[str, torch.Tensor]
 
 
-def to_float(images: torch.Tensor) -> torch.Tensor:
-    """uint8 [0, 255] or float [0, 1] -> float32 [0, 1]."""
+def to_float(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] or float [0, 1] -> ``dtype`` [0, 1]."""
     if images.dtype == torch.uint8:
-        return images.float() / 255.0
-    return images.float()
+        return images.to(dtype) / 255.0
+    return images.to(dtype)
 
 
-class StyleGAN2Trainer:
-    """Owns G, D, G's EMA copy, both optimisers and the random streams."""
+def _grads(loss: torch.Tensor, module: torch.nn.Module):
+    """d loss / d each parameter of ``module``; zeros for the parameters the
+    loss does not reach (a head the mode leaves unused), as in JAX."""
+    return torch.autograd.grad(loss, list(module.parameters()),
+                               allow_unused=True, materialize_grads=True)
+
+
+class StepDraws(NamedTuple):
+    """Every random draw of one :meth:`GANTrainer.train_step`."""
+
+    real: Any  # the real augmentation's parameters (None without one)
+    critic: List[Tuple[Dict[str, Any], Draws]]  # per D sub-step: G, D loss
+    g: Tuple[Dict[str, Any], Any]  # the G phase: G's draws, its augmentation
+    r1: Any = None  # StyleGAN2: R1's augmentation of the reals (None: no R1)
+
+
+class GANTrainer:
+    """Owns G, D, both optimisers, the optional EMA copy of G and the random
+    streams. ``g_optimizer`` and ``d_optimizer`` take a list of gradients,
+    one per parameter, in ``step``."""
+
+    def __init__(self, generator, discriminator, mode: str, augment,
+                 g_optimizer: ScheduledAdam, d_optimizer: ScheduledAdam,
+                 loss_type: str, penalty: str = "none", temp: float = 0.1,
+                 lbd_a: float = 1.0, lbd: float = 10.0, lbd2: float = 10.0,
+                 n_critic: int = 1, ema: bool = False, real_augment=None,
+                 seed: int = 0):
+        self.generator = generator
+        self.discriminator = discriminator
+        self.g_ema = (copy.deepcopy(generator).requires_grad_(False) if ema
+                      else None)
+        self.g_tx, self.d_tx = g_optimizer, d_optimizer
+        self.ctx = ModeCtx(augment, loss_type, temp, lbd_a, penalty, lbd, lbd2)
+        self.mode = get_mode(mode)
+        self.loss_D, self.loss_G = self.mode.loss_D, self.mode.loss_G
+        self.n_critic = n_critic
+        self.real_augment = real_augment
+        # the step's image dtype: D's (as the JAX package's image_dtype)
+        self.dtype = next(discriminator.parameters()).dtype
+        self.device = next(generator.parameters()).device
+        self.rng = AugRng.from_seed(seed, self.device)
+
+    # ------------------------------------------------------------- draws
+
+    def draw_g(self, n: int) -> Dict[str, Any]:
+        """The draws of one G forward: the latents."""
+        return {"z": self.generator.sample_latent(n, self.rng.device)}
+
+    def draw_aug(self, shape):
+        return self.ctx.augment.sample(tuple(shape), self.rng)
+
+    def draw_d(self, shape) -> Draws:
+        """The draws of one D loss on a real batch of ``shape``."""
+        return draw_d(self.mode, self.ctx, tuple(shape), self.rng)
+
+    def draw_g_aug(self, shape):
+        """The G loss's augmentation of a fake batch of ``shape``."""
+        return self.draw_aug(shape) if self.mode.g_aug else None
+
+    def draw_step(self, shape) -> StepDraws:
+        """All draws of one step on a real batch of ``shape``
+        (n_critic * N, H, W, C)."""
+        real = (self.real_augment.sample(tuple(shape), self.rng)
+                if self.real_augment is not None else None)
+        batch = (shape[0] // self.n_critic,) + tuple(shape[1:])
+        critic = [(self.draw_g(batch[0]), self.draw_d(batch))
+                  for _ in range(self.n_critic)]
+        return StepDraws(real, critic, (self.draw_g(batch[0]),
+                                        self.draw_g_aug(batch)))
+
+    # ------------------------------------------------------------- phases
+
+    def d_substep(self, images, g_draws: Dict[str, Any], draws: Draws
+                  ) -> Metrics:
+        """One D update on ``images`` and fresh fakes (G in train mode, its
+        batch-norm statistics advancing); D's ``u`` committed."""
+        with torch.no_grad():
+            gen_images = self.generator(**g_draws, train=True)
+        total, metrics = self.loss_D(self.ctx, self.discriminator, images,
+                                     gen_images, draws)
+        self.d_tx.step(_grads(total, self.discriminator))
+        commit_u(self.discriminator)
+        return metrics
+
+    def g_update(self, g_draws: Dict[str, Any], aug_params
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One G update against the current D, whose ``u`` advances;
+        returns the loss and the (pre-update) fakes."""
+        gen_images = self.generator(**g_draws, train=True)
+        loss = self.loss_G(self.ctx, self.discriminator, gen_images,
+                           aug_params)
+        self.g_tx.step(_grads(loss, self.generator))
+        commit_u(self.discriminator)
+        return loss, gen_images
+
+    # ------------------------------------------------------------- train
+
+    def train_step(self, images: torch.Tensor, ema_decay: float = 0.0,
+                   draws: Optional[StepDraws] = None) -> Metrics:
+        """One step on ``n_critic`` real batches (uint8 or float NHWC on the
+        device, stacked); returns the last D sub-step's metrics and
+        ``G_loss``, detached, still on the device."""
+        images = to_float(images, self.dtype)
+        if draws is None:
+            draws = self.draw_step(images.shape)
+        if self.real_augment is not None:
+            images = self.real_augment.apply(images, draws.real)
+        n = images.shape[0] // self.n_critic
+        for batch, (g_draws, d_draws) in zip(images.split(n), draws.critic,
+                                             strict=True):
+            metrics = self.d_substep(batch, g_draws, d_draws)
+        metrics["G_loss"], _ = self.g_update(*draws.g)
+        if self.g_ema is not None:
+            ema_update(self.g_ema, self.generator, ema_decay)
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+class StyleGAN2Trainer(GANTrainer):
+    """``train_stylegan2.py`` semantics (see the module docstring); always
+    keeps an EMA copy of G."""
 
     def __init__(self, generator, discriminator, mode: str, augment,
                  g_optimizer: ScheduledAdam, d_optimizer: ScheduledAdam,
@@ -48,20 +181,13 @@ class StyleGAN2Trainer:
                  lbd_r1: float = 10.0, d_reg_every: int = 16,
                  style_mix: float = 0.9, n_critic: int = 1,
                  real_augment=None, seed: int = 0):
-        if n_critic != 1:
-            raise NotImplementedError("n_critic > 1 is not ported yet")
-        self.generator = generator
-        self.discriminator = discriminator
-        self.g_ema = copy.deepcopy(generator).requires_grad_(False)
-        self.g_tx, self.d_tx = g_optimizer, d_optimizer
-        self.ctx = ModeCtx(augment, loss_type, temp, lbd_a)
-        self.loss_D, self.loss_G = get_mode(mode)
+        super().__init__(generator, discriminator, mode, augment, g_optimizer,
+                         d_optimizer, loss_type, temp=temp, lbd_a=lbd_a,
+                         n_critic=n_critic, ema=True,
+                         real_augment=real_augment, seed=seed)
         self.lbd_r1 = lbd_r1
         self.d_reg_every = d_reg_every
         self.style_mix = style_mix
-        self.real_augment = real_augment
-        self.device = next(generator.parameters()).device
-        self.rng = AugRng.from_seed(seed, self.device)
 
     # ------------------------------------------------------------- draws
 
@@ -73,9 +199,6 @@ class StyleGAN2Trainer:
                 "noise": G.draw_noise(n, g, dev),
                 "mixing": (G.draw_mixing(n, self.style_mix, g, dev)
                            if self.style_mix > 0 else None)}
-
-    def draw_aug(self, shape):
-        return self.ctx.augment.sample(tuple(shape), self.rng)
 
     # ------------------------------------------------------------- phases
 
@@ -89,19 +212,20 @@ class StyleGAN2Trainer:
     def r1(self, images: torch.Tensor, aug_params) -> torch.Tensor:
         """E[sum of squared grads of D(x) w.r.t. x] on augmented, detached
         reals (reference train_stylegan2.py:106-113), differentiable in D's
-        parameters."""
+        parameters. The D pass does not persist D's state."""
         x = self.ctx.augment.apply(images, aug_params).detach()
         x.requires_grad_(True)
-        d, _ = self.discriminator(x)
+        d, _ = self.discriminator(x, persist=False)
         (grads,) = torch.autograd.grad(d.sum(), x, create_graph=True)
         return at_least_f32(grads).reshape(x.shape[0], -1).pow(2).sum(dim=1).mean()
 
     def d_loss(self, images, gen_images, aug_params,
                r1_aug_params: Optional[Any] = None
                ) -> Tuple[torch.Tensor, Metrics]:
-        """D-phase loss; with ``r1_aug_params`` the R1 penalty is added."""
+        """D-phase loss (``aug_params``: the mode's augmentation of the D
+        batch); with ``r1_aug_params`` the R1 penalty is added."""
         total, metrics = self.loss_D(self.ctx, self.discriminator, images,
-                                     gen_images.detach(), aug_params)
+                                     gen_images.detach(), Draws(aug_params))
         if r1_aug_params is not None:
             r1 = self.r1(images, r1_aug_params)
             total = total + (0.5 * self.lbd_r1) * r1 * self.d_reg_every
@@ -111,34 +235,48 @@ class StyleGAN2Trainer:
 
     # ------------------------------------------------------------- train
 
+    def draw_step(self, shape, with_r1: bool = False) -> StepDraws:
+        """All draws of one step on a real batch of ``shape``
+        (n_critic * N, H, W, C). The first D sub-step reuses the G phase's
+        fakes, so its G draws are None."""
+        draws = super().draw_step(shape)
+        (_, first), *others = draws.critic
+        batch = (shape[0] // self.n_critic,) + tuple(shape[1:])
+        return draws._replace(critic=[(None, first)] + others,
+                              r1=self.draw_aug(batch) if with_r1 else None)
+
     def train_step(self, images: torch.Tensor, ema_decay: float = 0.0,
-                   do_r1: bool = False) -> Metrics:
-        """One step on a real batch (uint8 or float NHWC on the device);
-        returns detached scalar metrics, still on the device."""
-        images = to_float(images)
+                   do_r1: bool = False, draws: Optional[StepDraws] = None
+                   ) -> Metrics:
+        """One step on ``n_critic`` real batches (uint8 or float NHWC on the
+        device, stacked); returns detached scalar metrics, still on the
+        device: the last D sub-step's, R1 from the regularised pass, and
+        ``G_loss``. R1 runs where the draws hold its augmentation: with
+        ``draws`` None, where ``do_r1`` and ``lbd_r1 > 0``."""
+        images = to_float(images, self.dtype)
+        if draws is None:
+            draws = self.draw_step(images.shape,
+                                   with_r1=do_r1 and self.lbd_r1 > 0)
         if self.real_augment is not None:
-            images = self.real_augment.apply(
-                images, self.real_augment.sample(images.shape, self.rng))
-        n = images.shape[0]
+            images = self.real_augment.apply(images, draws.real)
+        batches = images.split(images.shape[0] // self.n_critic)
 
         # 1. EMA with the pre-update parameters
         ema_update(self.g_ema, self.generator, ema_decay)
 
         # 2. G phase
-        draws = self.draw_g(n)
-        g_params = list(self.generator.parameters())
-        g_loss, gen_images = self.g_loss(
-            **draws, aug_params=self.draw_aug(images.shape))
-        self.g_tx.step(torch.autograd.grad(g_loss, g_params))
+        g_loss, gen_images = self.g_update(*draws.g)
 
         # 3. D phase on the G phase's fakes
-        gen_images = gen_images.detach()
-        d_params = list(self.discriminator.parameters())
-        with_r1 = do_r1 and self.lbd_r1 > 0
-        total, metrics = self.d_loss(
-            images, gen_images, self.draw_aug((3 * n,) + images.shape[1:]),
-            self.draw_aug(images.shape) if with_r1 else None)
-        self.d_tx.step(torch.autograd.grad(total, d_params))
+        (_, d_draws), *others = draws.critic
+        total, metrics = self.d_loss(batches[0], gen_images.detach(),
+                                     d_draws.aug, draws.r1)
+        self.d_tx.step(_grads(total, self.discriminator))
+        commit_u(self.discriminator)
 
+        # 4. the other critic steps, with fresh batches and fakes
+        for batch, (g_draws, d_draws) in zip(batches[1:], others, strict=True):
+            metrics = dict(self.d_substep(batch, g_draws, d_draws),
+                           D_r1=metrics["D_r1"])
         metrics["G_loss"] = g_loss
         return {k: v.detach() for k, v in metrics.items()}

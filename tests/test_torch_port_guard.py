@@ -109,6 +109,18 @@ def test_trainer_cli_defaults_to_the_card(no_card):
               "options.max_steps=1"])
 
 
+def test_gan_cli_defaults_to_the_card(no_card):
+    from contrad_tpu_torch.models import get_architecture
+    from contrad_tpu_torch.train_gan import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["configs/gan/cifar10/c10_b64.toml", "sndcgan",
+              "--override", "options.dataset=synthetic_8_16",
+              "options.max_steps=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_architecture("sndcgan", (8, 8, 3))
+
+
 def test_blur_refuses_devices_other_than_cuda_and_cpu():
     from contrad_tpu_torch.ops.blur import blur2d
 
