@@ -10,14 +10,17 @@ result line:
 2. build the hand-written CUDA blur kernel (``contrad_tpu_torch/csrc``) from
    the sources beside this script, and time the build;
 3. hold the blur kernel to its plain PyTorch version at every (shape, pad)
-   the 32x32 StyleGAN2 train step gives it, forward and adjoint, and at the
-   512x512 recipe's largest blurs, in float32 (TF32 off) and bfloat16,
-   forward, backward and double backward; then time the kernel (L2 warm and
-   cold, float32 and bfloat16), the plain version and a depthwise
-   ``F.conv2d`` (a yardstick the port never calls) at those shapes, beside
-   the least time the card could take; sum the kernel's times weighted by
-   launches per step; time the wrapper's host cost per call;
-4. the main path: 6 train steps of the StyleGAN2 + ContraD recipe
+   that a train step of either StyleGAN2 path gives it, forward and
+   adjoint (the 32x32 recipe at batch 64, the 512x512 recipe at batch 16),
+   each with its launches per step on each path, in float32 (TF32 off) and
+   bfloat16, forward, backward and double backward (the kernel through its
+   autograd ``Function``, the plain version as three forward calls); then
+   time the kernel (L2 warm and cold, float32 and bfloat16), the plain
+   version and a depthwise ``F.conv2d`` (a yardstick the port never calls)
+   at those shapes, beside the least time the card could take; sum the
+   kernel's times weighted by launches per step on each path; time the
+   wrapper's host cost per call;
+4. the first slice's path: 6 train steps of the StyleGAN2 + ContraD recipe
    (``contrad_tpu_torch.train_stylegan2``: ``stylegan2`` at full width,
    batch 64, R1 every step) on synthetic 32x32 data, with the kernel's
    launch counts set to 0 just before and read just after; losses must be
@@ -30,19 +33,33 @@ result line:
    TPU version reached no Pallas kernel): 6 steps of
    ``python -m contrad_tpu_torch.train_gan`` with the README recipe
    (``c10_b512.toml sndcgan --mode contrad --aug simclr --use_warmup``,
-   full width, batch 512) and 3 of the README's ``std`` baseline
-   (``c10_b64.toml``, batch 64), on synthetic 32x32 data, with the blur's
-   launch count set to 0 just before each and read just after (it must
-   stay 0); losses must be finite; ms/step, img/s and peak memory; then a
-   torch.profiler breakdown of 3 flagship steps (kernel time by class, the
-   25 largest kernels, the idle share, launches per step); then one
-   flagship ``GANTrainer`` step on the card against the same step on the
-   CPU (same weights and draws, TF32 off, batch 64): losses, parameters,
-   spectral norm's ``u`` and the batch-norm statistics.
+   full width, batch 512), 3 of the README's ``std`` baseline
+   (``c10_b64.toml``, batch 64) and 3 of the flagship's recipe with the
+   ``snresnet18`` D, on synthetic 32x32 data, with the blur's launch count
+   set to 0 just before each and read just after (it must stay 0); losses
+   must be finite; ms/step, img/s and peak memory; then a torch.profiler
+   breakdown of 3 flagship steps (kernel time by class, the 25 largest
+   kernels, the idle share, launches per step); then one flagship
+   ``GANTrainer`` step on the card against the same step on the CPU (same
+   weights and draws, TF32 off, batch 64): losses, parameters, spectral
+   norm's ``u`` and the batch-norm statistics;
+7. the 512x512 AFHQ recipe, this slice's path: 17 steps of
+   ``python -m contrad_tpu_torch.train_stylegan2_contraD`` with the README
+   command (``afhq_dog_style64.toml stylegan2_512``, ``simclr_hq``, lazy
+   R1 every 16 steps, so step 16 carries it) on synthetic 512x512 data at
+   batch 16, full width and depth, with the blur's launch counts set to 0
+   just before and read just after: finite losses, launches as phase 3
+   counts them for 16 plain steps and one R1 step, none on the scalar
+   path; ms per plain step and for the R1 step, img/s, peak memory; a
+   torch.profiler breakdown of 3 plain steps (as phase 6's, with the blur's
+   ms beside phase 3's launch-weighted sum); then one step of the recipe's
+   trainer at batch 4 with R1 on the card against the CPU (same weights,
+   images and draws, TF32 off): losses and both phases' gradients.
 
-Then it prints the kernel table as one JSON line, the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``. It needs the repository
-around it and exits non-zero where no CUDA card is present.
+Then it prints the whole run's time, the kernel table as one JSON line,
+the card's name and power limit, and, last, ``{"ok": true, "device":
+{...}}``. It needs the repository around it and exits non-zero where no
+CUDA card is present.
 """
 
 from __future__ import annotations
@@ -74,15 +91,35 @@ RECIPE = ["configs/gan/stylegan2/c10_style64.toml", "stylegan2",
           "--no_lazy", "--halflife_k", "1000", "--use_warmup"]
 BATCH = 64
 STEPS = 6  # the first is warm-up: the step time is the mean of the others
+# the README's 512x512 AFHQ recipe, on synthetic 512x512 data at batch 16
+# (the config's 64 was a multi-GPU batch); the recipe's lazy R1 comes every
+# 16 steps, so step 16 of 17 carries it
+RECIPE_512 = ["configs/gan/stylegan2/afhq_dog_style64.toml", "stylegan2_512",
+              "--mode", "contrad", "--aug", "simclr_hq", "--lbd_r1", "0.5",
+              "--halflife_k", "20", "--use_warmup", "--evaluate_every", "5000",
+              "--n_eval_avg", "1", "--no_gif"]
+BATCH_512 = 16
+STEPS_512 = 17
+DATA_512 = "synthetic_512"
 # the README's SNDCGAN recipes (batch from the config), synthetic data
 FLAGSHIP = ["configs/gan/cifar10/c10_b512.toml", "sndcgan", "--mode",
             "contrad", "--aug", "simclr", "--use_warmup"]
 GAN_BASELINE = ["configs/gan/cifar10/c10_b64.toml", "sndcgan", "--mode", "std"]
+SNRESNET = ["configs/gan/cifar10/c10_b512.toml", "snresnet18", "--mode",
+            "contrad", "--aug", "simclr", "--use_warmup"]
 GAN_LOSSES = ("D_loss", "D_penalty", "D_real", "D_gen", "G_loss")
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    """A phase's header, with the seconds since the run started."""
+    log(f"{msg} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def card_line() -> str:
@@ -96,25 +133,38 @@ def card_line() -> str:
 
 def blur_cases():
     """Every (shape, pad, upsample factor) the blur kernel takes in one train
-    step of the 32x32 StyleGAN2 (small32 channels {32: 128, 16: 256, 8:
-    512}), with its launches per step: G's post-upsample blurs at batch 64,
-    once forward and once as the adjoint; D's two downsample blurs per
-    ResBlock (3x3 conv2: pads (2, 2); 1x1 skip: pads (1, 1)) at batch 192
-    (the D phase's real, real, fake), once each way, and at batch 64 three
-    times each way (the G phase, R1, and R1's double backward). Each
-    adjoint is a row of its own: the gradient's shape, the reversed taps,
-    the complementary pads (k - 1 - pad0, k - 1 - pad1). 54 launches in
-    all. Then, off the main path (0 per step), the blurs of the
-    512x512 recipe (configs/gan/stylegan2/style512_tpu_demo.toml: batch 8,
-    stylegan2_channels(1.0) = {512: 32, 256: 64, 128: 128}): D's 3x3
-    downsample blurs at 512, 256 and 128, and G's last post-upsample blur."""
+    step of each StyleGAN2 path, with its launches per step on each path
+    (``per_step``: ``stylegan2_32``, R1 every step; ``stylegan2_512`` and
+    ``stylegan2_512_r1``, the 512x512 recipe's plain step and its lazy-R1
+    step). Per path: G's post-upsample blurs (x4 taps, pads (1, 1), on the
+    conv-transpose's (2s + 1)-square output), once forward and once as the
+    adjoint, at the G phase's batch; D's two downsample blurs per ResBlock
+    (3x3 conv2: pads (2, 2); 1x1 skip: pads (1, 1)) on each block's input
+    size and channels, once each way at the D phase's batch (3 x batch: the
+    real, real, fake of contrad), and at the batch once each way in the G
+    phase, and twice more each way in a step with R1 (R1's D pass and its
+    double backward). Each adjoint is a row of its own: the gradient's
+    shape, the reversed taps, the complementary pads (k - 1 - pad0,
+    k - 1 - pad1). 32x32 (small32 channels {32: 128, 16: 256, 8: 512}, batch
+    64): 54 launches a step. 512x512 (``stylegan2_channels(1.0)``, batch
+    16): 70 a plain step, 126 an R1 step."""
+    fwd = []
     ch = {8: 512, 16: 256, 32: 128}
-    fwd = [("G", (BATCH, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2, 1)
-           for s in (4, 8, 16)]
+    fwd += [("G 32", (BATCH, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2,
+             {"stylegan2_32": 1}) for s in (4, 8, 16)]
     for n, per_step in ((BATCH, 3), (3 * BATCH, 1)):
         for s in (32, 16, 8):
-            fwd += [("D", (n, s, s, ch[s]), (2, 2), 1, per_step),
-                    ("D", (n, s, s, ch[s]), (1, 1), 1, per_step)]
+            fwd += [("D 32", (n, s, s, ch[s]), pad, 1,
+                     {"stylegan2_32": per_step}) for pad in ((2, 2), (1, 1))]
+    ch = {s: min(512, 16384 // s) for s in (8, 16, 32, 64, 128, 256, 512)}
+    fwd += [("G 512", (BATCH_512, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2,
+             {"stylegan2_512": 1, "stylegan2_512_r1": 1})
+            for s in (4, 8, 16, 32, 64, 128, 256)]
+    for n, plain, r1 in ((3 * BATCH_512, 1, 1), (BATCH_512, 1, 3)):
+        for s in (512, 256, 128, 64, 32, 16, 8):
+            fwd += [("D 512", (n, s, s, ch[s]), pad, 1,
+                     {"stylegan2_512": plain, "stylegan2_512_r1": r1})
+                    for pad in ((2, 2), (1, 1))]
     cases = []
     for who, shape, pad, up, per_step in fwd:
         cases.append(dict(who=who, shape=shape, pad=pad, up=up,
@@ -124,13 +174,16 @@ def blur_cases():
                                                    w + sum(pad) - 3, c),
                           pad=(3 - pad[0], 3 - pad[1]), up=up,
                           per_step=per_step, adjoint=True))
-    for shape, pad, up, who in (((8, 512, 512, 32), (2, 2), 1, "D 512"),
-                                ((8, 256, 256, 64), (2, 2), 1, "D 512"),
-                                ((8, 128, 128, 128), (2, 2), 1, "D 512"),
-                                ((8, 513, 513, 32), (1, 1), 2, "G 512")):
-        cases.append(dict(who=who, shape=shape, pad=pad, up=up, per_step=0,
-                          adjoint=False))
     return cases
+
+
+def per_step_launches(cases, path: str) -> int:
+    return sum(c["per_step"].get(path, 0) for c in cases)
+
+
+def fmt_per_step(per_step) -> str:
+    return "x" + ",".join(f"{n} {path.replace('stylegan2_', '')}"
+                          for path, n in per_step.items())
 
 
 def case_taps(case):
@@ -190,9 +243,41 @@ def copy_bandwidth() -> float:
     return 2 * a.numel() / (ms * 1e-3)
 
 
+def plain_derivatives(blur, x, g, hh, taps, pad):
+    """The plain version's forward, backward and double backward of the blur
+    at ``x``, as three forward calls without autograd: ``y = blur(x)``; the
+    backward ``blur^T(g)``, a blur of ``g`` with the reversed taps and the
+    complementary pads ``(k - 1 - pad0, k - 1 - pad1)``; and the double
+    backward ``d<blur^T(g), hh>/dg = blur(hh)``. ``tests/test_torch_port_
+    blur.py`` holds them to autograd through the plain version."""
+    import torch
+
+    k = len(taps[0])
+    adjoint = tuple(tuple(reversed(t)) for t in taps)
+    with torch.no_grad():
+        return (blur.blur2d_plain(x, *taps, pad),
+                blur.blur2d_plain(g, *adjoint, (k - 1 - pad[0], k - 1 - pad[1])),
+                blur.blur2d_plain(hh, *taps, pad))
+
+
+def kernel_derivatives(blur, x, g, hh, taps, pad):
+    """The same three through the kernel's autograd ``Function``: the
+    forward, then ``torch.autograd.grad`` once and twice, as R1 takes
+    them."""
+    import torch
+
+    xx = x.clone().requires_grad_(True)
+    gg = g.clone().requires_grad_(True)
+    y = blur.blur2d(xx, *taps, pad)
+    (gx,) = torch.autograd.grad(y, xx, gg, create_graph=True)
+    (g2,) = torch.autograd.grad(gx, gg, hh)
+    return y.detach(), gx.detach(), g2
+
+
 def check_blur(blur, cases) -> float:
-    """Kernel vs plain version, forward, backward and double backward, in
-    float32 and bfloat16; returns the largest float32 error."""
+    """Kernel vs plain version in float32 and bfloat16, forward, backward
+    and double backward, at every case; returns the largest float32
+    error."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -208,19 +293,8 @@ def check_blur(blur, cases) -> float:
             atol, rtol = TOL[name]
             x, g, hh = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                         for s in (shape, out_shape, shape))
-
-            def run(fn):
-                # y = blur(x); gx = blur^T(g), the backward; d<gx, hh>/dg =
-                # blur(hh), the double backward R1 takes
-                xx = x.clone().requires_grad_(True)
-                gg = g.clone().requires_grad_(True)
-                y = fn(xx, *taps, pad)
-                (gx,) = torch.autograd.grad(y, xx, gg, create_graph=True)
-                (g2,) = torch.autograd.grad(gx, gg, hh)
-                return y.detach(), gx.detach(), g2
-
-            got = run(blur.blur2d)
-            want = run(blur.blur2d_plain)
+            got = kernel_derivatives(blur, x, g, hh, taps, pad)
+            want = plain_derivatives(blur, x, g, hh, taps, pad)
             torch.cuda.synchronize()
             for what, a, b in zip(("fwd", "bwd", "2nd"), got, want):
                 err = float((a.float() - b.float()).abs().max())
@@ -244,7 +318,9 @@ def time_blur(blur, cases, copy_bps: float):
     untimed), each as CUDA-graph replays; the plain version (float32, eager:
     it makes its tap tensors on the host every call); the path the kernel
     took; and the least time the card could take (bytes at the published HBM
-    rate, or float32 operations, whichever is larger)."""
+    rate, or float32 operations, whichever is larger). Each measurement is
+    about 20 ms of the kernel's device work: 3-30 calls, fewer for the
+    yardstick and the plain version, which take 5-50 times as long."""
     import torch
     import torch.nn.functional as F
 
@@ -262,13 +338,19 @@ def time_blur(blur, cases, copy_bps: float):
             cold = [x] + [torch.randn_like(x) for _ in range(
                 max(1, math.ceil(COLD_BYTES / x.nbytes)) - 1)]
             plan = blur.launch_plan(shape, k, pad, dtype)
-            if case["per_step"] and not plan.vector:
+            if not plan.vector:
                 raise AssertionError(f"main-path shape {shape} took the "
                                      f"scalar path")
+            # about 20 ms of device work per measurement (at least 3 calls,
+            # at most 30): the largest rows take a millisecond a call, the
+            # plain version fifty times the bound
+            nbytes = item * n * c * (h * w + ho * wo)
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            iters = max(3, min(30, round(20 / (1.5 * bytes_ms))))
             ms = cuda_ms(lambda a: blur.blur2d(a, taps_v, taps_h, pad), [x],
-                         graph=True)
+                         iters=iters, graph=True)
             cold_ms = cuda_ms(lambda a: blur.blur2d(a, taps_v, taps_h, pad),
-                              cold, graph=True)
+                              cold, iters=iters, graph=True)
             del cold
             w2d = torch.outer(torch.tensor(taps_v), torch.tensor(taps_h))
             w2d = w2d[None, None].expand(c, 1, k, k).contiguous().to(
@@ -277,15 +359,14 @@ def time_blur(blur, cases, copy_bps: float):
             x_nchw = x_cl.contiguous()
             assert pad[0] == pad[1]
             library_ms = min(cuda_ms(lambda a: F.conv2d(
-                a, w2d, padding=pad[0], groups=c), [xx], graph=True)
+                a, w2d, padding=pad[0], groups=c), [xx],
+                iters=max(3, iters // 3), graph=True)
                 for xx in (x_cl, x_nchw))
             del x_nchw
             plain_ms = (cuda_ms(lambda a: blur.blur2d_plain(
-                a, taps_v, taps_h, pad), [x]) if dtype == torch.float32
-                else None)
-            nbytes = item * n * c * (h * w + ho * wo)
+                a, taps_v, taps_h, pad), [x], iters=max(3, iters // 10))
+                if dtype == torch.float32 else None)
             flops = 2 * k * n * c * ho * (w + pad[0] + pad[1] + wo)
-            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             flops_ms = 1e3 * flops / F32_FLOP_PER_S
             bound_ms = max(bytes_ms, flops_ms)
             rows.append(dict(
@@ -297,8 +378,8 @@ def time_blur(blur, cases, copy_bps: float):
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                 copy_bound_ms=1e3 * nbytes / copy_bps))
             plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
-            log(f"  blur {name:8s} {case['who']:6s} {str(shape):20s} pad "
-                f"{pad} up {case['up']} x{case['per_step']}/step "
+            log(f"  blur {name:8s} {case['who']:9s} {str(shape):20s} pad "
+                f"{pad} up {case['up']} {fmt_per_step(case['per_step'])} "
                 f"[{rows[-1]['path']}]: kernel {ms:.4f} ms warm, "
                 f"{cold_ms:.4f} cold, bound {bound_ms:.4f} ms "
                 f"({100 * bound_ms / ms:.0f} % warm, "
@@ -332,15 +413,23 @@ def blur_host_us(blur, calls: int = 200) -> dict:
 
 # ------------------------------------------------------------ main path
 
-def train(steps: int):
-    from contrad_tpu_torch.ops import blur
-    from contrad_tpu_torch.train_stylegan2 import main
-
+def run_cli(main, recipe, dataset: str, steps: int, batch=None):
+    """``steps`` steps of one of the port's training CLIs (its ``main``)
+    with ``recipe`` on ``dataset`` at ``batch`` (the config's where None),
+    with the blur's launch counts set to 0 just before and read just after;
+    every metric it prints must be finite. Returns its history, the blur's
+    launches (all, and on the scalar path), the peak device memory and the
+    ms per step (the mean after the first) and img/s."""
     import torch
 
-    argv = RECIPE + ["--print_every", "1", "--seed", "0", "--override",
-                     "options.dataset=synthetic_32",
-                     f"options.batch_size={BATCH}",
+    from contrad_tpu_torch.config import default_config_files, load_config
+    from contrad_tpu_torch.ops import blur
+
+    if batch is None:
+        batch = load_config(default_config_files(recipe[0])).options.batch_size
+    argv = recipe + ["--print_every", "1", "--seed", "0", "--override",
+                     f"options.dataset={dataset}",
+                     f"options.batch_size={batch}",
                      f"options.max_steps={steps}"]
     torch.cuda.reset_peak_memory_stats()
     blur.blur2d.launches = blur.blur2d.scalar_launches = 0
@@ -348,19 +437,45 @@ def train(steps: int):
     launches, scalar = blur.blur2d.launches, blur.blur2d.scalar_launches
     peak = torch.cuda.max_memory_allocated()
     for rec in history:
-        for k in ("D_loss", "D_penalty", "D_real", "D_gen", "D_r1", "G_loss"):
-            if not math.isfinite(rec[k]):
-                raise AssertionError(f"step {rec['step']}: {k} = {rec[k]}")
-    if launches == 0:
-        raise AssertionError("the train step never launched the blur kernel")
-    if scalar:
-        raise AssertionError(f"{scalar} of the main path's blur launches "
-                             f"took the scalar path")
-    timed = [r["seconds_per_step"] for r in history[1:]]
-    ms_step = 1e3 * sum(timed) / len(timed)
-    return dict(history=history, launches=launches,
-                launches_per_step=launches / steps, ms_per_step=ms_step,
-                img_per_s=BATCH / (ms_step * 1e-3), peak_bytes=peak)
+        for k, v in rec.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"step {rec['step']}: {k} = {v}")
+    ms_step = 1e3 * sum(r["seconds_per_step"] for r in history[1:]) / (
+        len(history) - 1)
+    return dict(history=history, batch=batch, launches=launches,
+                scalar_launches=scalar, launches_per_step=launches / steps,
+                ms_per_step=ms_step, img_per_s=batch / (ms_step * 1e-3),
+                peak_bytes=peak)
+
+
+def log_run(name: str, r) -> None:
+    log(f"  {name} {r['batch']}: {r['ms_per_step']:.2f} ms/step after the "
+        f"first, {r['img_per_s']:.1f} img/s; peak memory "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB; blur launches {r['launches']}")
+
+
+def expect_launches(r, want, what: str) -> None:
+    """The blur's launches in a run (``run_cli``) or per profiled step
+    (``profile``) must be ``want``, none on the scalar path."""
+    got = r.get("blur_launches_per_step", r.get("launches"))
+    if got != want:
+        raise AssertionError(f"{got} blur launches in {what}, not the {want} "
+                             f"that phase 3 counts")
+    if r.get("scalar_launches", 0):
+        raise AssertionError(f"{r['scalar_launches']} blur launches in "
+                             f"{what} took the scalar path")
+
+
+def share_datasets() -> None:
+    """Make each dataset once for the whole run: phase 7's steps and its
+    profile read the same ``synthetic_512`` (2,560 images of 512x512, which
+    numpy takes about a minute to draw). The CLIs look ``get_dataset`` up in
+    ``contrad_tpu_torch.data`` when they build."""
+    import functools
+
+    from contrad_tpu_torch import data
+
+    data.get_dataset = functools.lru_cache(maxsize=None)(data.get_dataset)
 
 
 def profile_rows(step, steps: int):
@@ -387,31 +502,29 @@ def profile_rows(step, steps: int):
     return wall_ms, rows
 
 
-def profile_step(steps: int = 3):
-    """Device time by kernel over a few train steps (torch.profiler): the
-    kernels' own time, summed by name, and the device's idle share of the
-    wall time of those steps (under the profiler)."""
-    import torch
+def profile(cli, recipe, dataset: str, batch=None, steps: int = 3,
+            **step_kwargs):
+    """torch.profiler over ``steps`` train steps (after 2 untimed ones) of
+    the trainer that the CLI module ``cli`` builds for ``recipe`` on
+    ``dataset``: kernel time by class, the largest kernels, the idle share
+    and launches per step (``class_report``), with the blur's launches and
+    device ms per step."""
+    from contrad_tpu_torch.ops import blur
 
-    from contrad_tpu_torch.train_stylegan2 import build, parse_args
-
-    P = parse_args(RECIPE + ["--seed", "0", "--override",
-                             "options.dataset=synthetic_32"])
-    _, loader, trainer = build(P)
+    override = [f"options.dataset={dataset}"]
+    if batch is not None:
+        override.append(f"options.batch_size={batch}")
+    P = cli.parse_args(recipe + ["--seed", "0", "--override"] + override)
+    _, loader, trainer = cli.build(P)
     for _ in range(2):
-        trainer.train_step(next(loader), do_r1=True)
-    wall_ms, rows = profile_rows(
-        lambda: trainer.train_step(next(loader), do_r1=True), steps)
-    busy = sum(r[0] for r in rows)
-    blur_ms = sum(r[0] for r in rows if "blur2d_kernel" in r[2])
-    log(f"  profile: {wall_ms:.2f} ms/step wall, kernels {busy:.2f} ms/step "
-        f"(idle {100 * (1 - busy / wall_ms):.1f} %), blur kernel "
-        f"{blur_ms:.3f} ms/step ({100 * blur_ms / busy:.1f} % of kernels)")
-    for ms, count, key in rows[:25]:
-        log(f"    {ms:8.3f} ms/step  x{count:<4.0f} {key[:100]}")
-    return dict(wall_ms_per_step=wall_ms, kernel_ms_per_step=busy,
-                idle_share=1 - busy / wall_ms, blur_ms_per_step=blur_ms,
-                kernels=[dict(ms=ms, count=c, name=k) for ms, c, k in rows])
+        trainer.train_step(next(loader), **step_kwargs)
+    blur.blur2d.launches = 0
+    report = class_report(*profile_rows(
+        lambda: trainer.train_step(next(loader), **step_kwargs), steps))
+    report["blur_launches_per_step"] = blur.blur2d.launches / steps
+    report["blur_ms_per_step"] = sum(
+        k["ms"] for k in report["kernels"] if "blur2d_kernel" in k["name"])
+    return report
 
 
 def model_reference_check() -> float:
@@ -451,43 +564,11 @@ def model_reference_check() -> float:
 
 # ------------------------------------------------------- SNDCGAN flagship
 
-def train_gan(recipe, steps: int):
-    """``steps`` steps of ``contrad_tpu_torch.train_gan`` with ``recipe`` on
-    synthetic 32x32 data; the blur kernel must not launch."""
-    import torch
-
-    from contrad_tpu_torch.ops import blur
-    from contrad_tpu_torch.train_gan import main
-
-    argv = recipe + ["--print_every", "1", "--seed", "0", "--override",
-                     "options.dataset=synthetic_32",
-                     f"options.max_steps={steps}"]
-    torch.cuda.reset_peak_memory_stats()
-    blur.blur2d.launches = blur.blur2d.scalar_launches = 0
-    history = main(argv)
-    launches = blur.blur2d.launches
-    peak = torch.cuda.max_memory_allocated()
-    for rec in history:
-        for k in GAN_LOSSES:
-            if not math.isfinite(rec[k]):
-                raise AssertionError(f"step {rec['step']}: {k} = {rec[k]}")
-    if launches:
-        raise AssertionError(f"the SNDCGAN path launched the blur kernel "
-                             f"{launches} times")
-    from contrad_tpu_torch.config import default_config_files, load_config
-
-    batch = load_config(default_config_files(recipe[0])).options.batch_size
-    timed = [r["seconds_per_step"] for r in history[1:]]
-    ms_step = 1e3 * sum(timed) / len(timed)
-    return dict(history=history, batch=batch, blur_launches=launches,
-                ms_per_step=ms_step, img_per_s=batch / (ms_step * 1e-3),
-                peak_bytes=peak)
-
-
 def kernel_class(name: str) -> str:
     """A CUDA kernel's class, from its name."""
     n = name.lower()
     for cls, keys in (
+            ("blur (hand-written)", ("blur2d_kernel",)),
             ("layout transpose", ("nchwtonhwc", "nhwctonchw")),
             ("batch norm", ("batch_norm", "batchnorm", "welford")),
             ("convolution", ("conv", "dgrad", "wgrad", "fprop",
@@ -503,18 +584,9 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_gan(steps: int = 3):
-    """torch.profiler over ``steps`` flagship steps (after 2 untimed ones):
-    kernel time by class, the largest kernels, idle share, launches."""
-    from contrad_tpu_torch.train_gan import build, parse_args
-
-    P = parse_args(FLAGSHIP + ["--seed", "0", "--override",
-                               "options.dataset=synthetic_32"])
-    _, loader, trainer = build(P)
-    for _ in range(2):
-        trainer.train_step(next(loader))
-    wall_ms, rows = profile_rows(lambda: trainer.train_step(next(loader)),
-                                 steps)
+def class_report(wall_ms: float, rows):
+    """Log and return a profile's kernel time by class, the 25 largest
+    kernels, the idle share and the launches per step."""
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     classes = {}
@@ -603,6 +675,84 @@ def gan_card_vs_cpu(batch: int = 64) -> float:
     return worst
 
 
+# ------------------------------------------------------- the 512x512 recipe
+
+class KeepGrads:
+    """An optimiser stand-in that keeps the gradients it is given and leaves
+    the parameters alone."""
+
+    def __init__(self):
+        self.grads = None
+
+    def step(self, grads):
+        self.grads = [g.detach().clone() for g in grads]
+
+
+def sg2_512_card_vs_cpu(batch: int = 4) -> dict:
+    """One ``StyleGAN2Trainer`` step of the 512x512 recipe (``stylegan2_512``
+    at full width, contrad, ``simclr_hq``, lazy R1 on) on the card and on
+    the CPU, from the same weights, images and draws, float32 with TF32
+    off: the losses and the gradients of both phases, each tensor within
+    ``MODEL_TOL`` of its largest element on the CPU. Batch 4: the smallest
+    whose D batches (4 and 12 images) minibatch stddev's groups of 4
+    divide."""
+    import torch
+
+    from contrad_tpu_torch.augment import get_augment
+    from contrad_tpu_torch.config import default_config_files, load_config
+    from contrad_tpu_torch.models import get_architecture
+    from contrad_tpu_torch.training import StyleGAN2Trainer
+
+    hyper = load_config(default_config_files(RECIPE_512[0])).get("augment")
+    images = torch.rand(batch, 512, 512, 3,
+                        generator=torch.Generator().manual_seed(4))
+    draws, out = None, {}
+    for device in ("cpu", "cuda"):
+        G, D = get_architecture("stylegan2_512", (512, 512, 3), device=device,
+                                seed=1)
+        g_tx, d_tx = KeepGrads(), KeepGrads()
+        trainer = StyleGAN2Trainer(G, D, mode="contrad",
+                                   augment=get_augment("simclr_hq", hyper),
+                                   g_optimizer=g_tx, d_optimizer=d_tx,
+                                   loss_type="nonsat", lbd_r1=0.5,
+                                   d_reg_every=16)
+        if draws is None:
+            draws = trainer.draw_step(images.shape, with_r1=True)
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(images.to(device),
+                                     draws=_to(draws, device))
+        grads = {f"G.{k}": g for (k, _), g in zip(G.named_parameters(),
+                                                   g_tx.grads)}
+        grads.update({f"D.{k}": g for (k, _), g in zip(D.named_parameters(),
+                                                        d_tx.grads)})
+        out[device] = ({k: v.reshape(1) for k, v in metrics.items()}, grads,
+                       time.perf_counter() - t0)
+        del trainer, G, D
+    worst, failed = {"loss": 0.0, "grad": 0.0}, []
+    for what, i in (("loss", 0), ("grad", 1)):
+        for k, want in out["cpu"][i].items():
+            got = out["cuda"][i][k].cpu()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"512x512 step on the card: {k} is not "
+                                     f"finite")
+            err = float((got - want).abs().max())
+            limit = MODEL_TOL[0] + MODEL_TOL[1] * float(want.abs().max())
+            worst[what] = max(worst[what], err / limit)
+            if what == "loss" or not err <= limit:
+                log(f"  {k:44s} max|card - cpu| {err:.3e} (tol {limit:.3e})")
+            if not err <= limit:
+                failed.append(k)
+    log(f"  {len(out['cpu'][1])} gradient tensors: worst max|card - cpu| at "
+        f"{worst['grad']:.3f} of its tolerance; losses at "
+        f"{worst['loss']:.3f}; step {out['cpu'][2]:.1f} s on the CPU, "
+        f"{out['cuda'][2]:.2f} s on the card (first)")
+    if failed:
+        raise AssertionError(f"512x512 step: card and CPU disagree on "
+                             f"{failed}")
+    return dict(batch=batch, worst_fraction_of_tol=worst,
+                cpu_s=out["cpu"][2], card_s=out["cuda"][2])
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -627,89 +777,140 @@ def main() -> int:
     from contrad_tpu_torch.ops import blur
 
     card = card_line()
-    log(f"[1] card: {card}")
+    phase(f"[1] card: {card}")
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
     blur.build(verbose=True)
     build_s = time.perf_counter() - t0
-    log(f"[2] built the blur kernel in {build_s:.2f} s")
+    phase(f"[2] built the blur kernel in {build_s:.2f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cases = blur_cases()
-    per_step = sum(c["per_step"] for c in cases)
-    log(f"[3] blur kernel vs plain version at {len(cases)} cases "
-        f"({sum(c['per_step'] > 0 for c in cases)} of the main path, "
-        f"{per_step} launches per step)")
+    paths = ("stylegan2_32", "stylegan2_512", "stylegan2_512_r1")
+    per_step = {path: per_step_launches(cases, path) for path in paths}
+    phase(f"[3] blur kernel vs plain version at {len(cases)} cases; launches "
+        f"per step: {per_step}")
     max_err = check_blur(blur, cases)
+    phase("  timing")
     copy_bps = copy_bandwidth()
     log(f"  device-to-device copy: {copy_bps / 1e9:.1f} GB/s")
     rows = time_blur(blur, cases, copy_bps)
-    step_sum = {f"{dtype} {when}": sum(
-        r["per_step"] * r[when] for r in rows if r["dtype"] == dtype)
-        for dtype in ("float32", "bfloat16") for when in ("ms", "cold_ms")}
+    step_sum = {f"{path} {dtype} {when}": sum(
+        r["per_step"].get(path, 0) * r[when] for r in rows
+        if r["dtype"] == dtype)
+        for path in paths for dtype in ("float32", "bfloat16")
+        for when in ("ms", "cold_ms")}
     host_us = blur_host_us(blur)
     log(f"  wrapper host time per call: {host_us['blur2d']:.2f} us "
         f"(blur2d), {host_us['_launch']:.2f} us (_launch)")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
 
-    log(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
-        f"ContraD recipe, batch {BATCH}")
-    run = train(STEPS)
-    log(f"  blur launches: {run['launches']} ({run['launches_per_step']:.1f}"
-        f" per step); {run['ms_per_step']:.2f} ms/step after the first, "
-        f"{run['img_per_s']:.1f} img/s; peak memory "
-        f"{run['peak_bytes'] / 2**30:.3f} GiB")
-    if run["launches_per_step"] != per_step:
-        raise AssertionError(f"{run['launches_per_step']} blur launches per "
-                             f"step, not the {per_step} that phase 3 times")
-    prof = profile_step()
+    from contrad_tpu_torch import (
+        train_gan, train_stylegan2, train_stylegan2_contraD)
+
+    share_datasets()
+    phase(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
+          f"ContraD recipe, batch {BATCH}")
+    run = run_cli(train_stylegan2.main, RECIPE, "synthetic_32", STEPS, BATCH)
+    log_run("32x32 StyleGAN2 + ContraD, batch", run)
+    expect_launches(run, STEPS * per_step["stylegan2_32"], "the 32x32 path")
+    prof = profile(train_stylegan2, RECIPE, "synthetic_32", do_r1=True)
+    expect_launches(prof, per_step["stylegan2_32"], "a profiled 32x32 step")
     log(f"  blur kernel per step: {prof['blur_ms_per_step']:.3f} ms under "
         f"the profiler; phase 3's times weighted by launches per step: "
-        f"{step_sum['float32 ms']:.3f} ms warm, "
-        f"{step_sum['float32 cold_ms']:.3f} ms cold (float32)")
+        f"{step_sum['stylegan2_32 float32 ms']:.3f} ms warm, "
+        f"{step_sum['stylegan2_32 float32 cold_ms']:.3f} ms cold (float32)")
 
     torch.backends.cudnn.allow_tf32 = False
-    log("[5] G and D forwards, card vs CPU")
+    phase("[5] G and D forwards, card vs CPU")
     model_err = model_reference_check()
 
-    log("[6] the SNDCGAN + ContraD flagship (no hand-written kernel on its "
-        "path)")
+    phase("[6] the SNDCGAN + ContraD flagship and snresnet18 (no hand-written "
+          "kernel on their path)")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
-    flagship = train_gan(FLAGSHIP, STEPS)
-    baseline = train_gan(GAN_BASELINE, 3)
+    flagship = run_cli(train_gan.main, FLAGSHIP, "synthetic_32", STEPS)
+    baseline = run_cli(train_gan.main, GAN_BASELINE, "synthetic_32", 3)
+    snresnet = run_cli(train_gan.main, SNRESNET, "synthetic_32", 3)
     for name, r in (("flagship contrad, batch", flagship),
-                    ("std baseline, batch", baseline)):
-        log(f"  {name} {r['batch']}: {r['ms_per_step']:.2f} ms/step after "
-            f"the first, {r['img_per_s']:.1f} img/s; peak memory "
-            f"{r['peak_bytes'] / 2**30:.3f} GiB; blur launches "
-            f"{r['blur_launches']}; TF32 convs on, TF32 matmuls off")
-    gan_prof = profile_gan()
+                    ("std baseline, batch", baseline),
+                    ("snresnet18 contrad, batch", snresnet)):
+        log_run(name, r)
+        expect_launches(r, 0, name.split(",")[0])
+    log("  TF32 convs on, TF32 matmuls off")
+    gan_prof = profile(train_gan, FLAGSHIP, "synthetic_32")
+    expect_launches(gan_prof, 0, "a profiled flagship step")
     torch.backends.cudnn.allow_tf32 = False
     gan_err = gan_card_vs_cpu()
 
-    big = max((r for r in rows if r["per_step"] and r["dtype"] == "float32"),
+    phase(f"[7] the 512x512 recipe: {STEPS_512} steps of "
+          f"train_stylegan2_contraD at batch {BATCH_512} (step 16 with R1)")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    run512 = run_cli(train_stylegan2_contraD.main, RECIPE_512, DATA_512,
+                     STEPS_512, BATCH_512)
+    history = run512["history"]
+    r1_steps = [r["step"] for r in history if r["D_r1"] > 0]
+    if r1_steps != [16]:
+        raise AssertionError(f"R1 ran at steps {r1_steps}, not at step 16")
+    expect_launches(run512, (STEPS_512 - 1) * per_step["stylegan2_512"]
+                    + per_step["stylegan2_512_r1"], "the 512x512 path")
+    run512["ms_per_plain_step"] = 1e3 * sum(
+        r["seconds_per_step"] for r in history[1:15]) / 14
+    run512["ms_per_r1_step"] = 1e3 * history[15]["seconds_per_step"]
+    run512["img_per_s"] = BATCH_512 / (run512["ms_per_plain_step"] * 1e-3)
+    log(f"  blur launches: {run512['launches']} ({per_step['stylegan2_512']} "
+        f"a plain step, {per_step['stylegan2_512_r1']} the R1 step); "
+        f"{run512['ms_per_plain_step']:.2f} ms a plain step (steps 2-15), "
+        f"{run512['ms_per_r1_step']:.2f} ms the R1 step, first step "
+        f"{history[0]['seconds_per_step']:.2f} s; {run512['img_per_s']:.2f} "
+        f"img/s; peak memory {run512['peak_bytes'] / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    prof512 = profile(train_stylegan2, RECIPE_512, DATA_512, BATCH_512)
+    expect_launches(prof512, per_step["stylegan2_512"],
+                    "a profiled 512x512 step")
+    log(f"  blur kernel per plain step: {prof512['blur_ms_per_step']:.3f} ms "
+        f"under the profiler; phase 3's times weighted by launches per step:"
+        f" {step_sum['stylegan2_512 float32 ms']:.3f} ms warm, "
+        f"{step_sum['stylegan2_512 float32 cold_ms']:.3f} ms cold (float32)")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    phase("  one 512x512 step (batch 4, R1) on the card against the CPU")
+    check512 = sg2_512_card_vs_cpu()
+
+    big = max((r for r in rows if r["dtype"] == "float32"),
               key=lambda r: r["bytes"])
     kernels = [{
         "name": "blur2d", "route": "cuda",
         "source": "contrad_tpu_torch/csrc/blur2d.cu",
         "replaces": "contrad_tpu/ops/pallas_blur.py:73",
-        "launches": run["launches"], "max_abs_err": max_err,
+        "launches": run512["launches"], "max_abs_err": max_err,
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": big["library_ms"]}]
+        "library_ms": big["library_ms"],
+        "launches_per_path": {
+            "stylegan2_32 (phase 4, 6 steps)": run["launches"],
+            "sndcgan (phase 6)": flagship["launches"],
+            "snresnet18 (phase 6)": snresnet["launches"],
+            f"stylegan2_512 (phase 7, {STEPS_512} steps)": run512["launches"]},
+        "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0)}]
+    total_s = time.perf_counter() - T0
+    log(f"whole run: {total_s:.1f} s")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
-            card=card, kind=kind, build_s=build_s, blur_cases=rows,
-            blur_max_abs_err=max_err, copy_bytes_per_s=copy_bps,
+            card=card, kind=kind, build_s=build_s, total_s=total_s,
+            blur_cases=rows, blur_max_abs_err=max_err,
+            copy_bytes_per_s=copy_bps, blur_launches_per_step=per_step,
             blur_ms_per_step_from_cases=step_sum, blur_host_us=host_us,
-            train={k: v for k, v in run.items()}, profile=prof,
+            train=run, profile=prof,
             model_max_abs_err=model_err, kernels=kernels,
             sndcgan=dict(card=card, flagship=flagship, std_baseline=baseline,
-                         profile=gan_prof, card_vs_cpu_max_abs_err=gan_err,
-                         tf32="convs on, matmuls off (card vs CPU: off)")),
+                         snresnet18=snresnet, profile=gan_prof,
+                         card_vs_cpu_max_abs_err=gan_err,
+                         tf32="convs on, matmuls off (card vs CPU: off)"),
+            stylegan2_512=dict(train=run512, profile=prof512,
+                               card_vs_cpu=check512)),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

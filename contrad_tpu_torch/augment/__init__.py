@@ -1,6 +1,7 @@
 """Augmentation registry and compositions (the port of
-``contrad_tpu/augment/__init__.py``; modes ``none``, ``hflip`` and
-``simclr``).
+``contrad_tpu/augment/__init__.py``, every mode of its registry: ``none``,
+``gaussian``, ``hflip``, ``hfrt``, ``color_jitter``, ``cutout``, ``simclr``,
+``simclr_hq``, ``simclr_hq_cutout`` and ``diffaug``).
 
 An augmentation has ``sample(shape, rng) -> params`` and
 ``apply(x, params) -> images`` (NHWC float in [0, 1]).
@@ -8,7 +9,9 @@ An augmentation has ``sample(shape, rng) -> params`` and
 per-sample draws and a CPU generator for the per-batch choices that steer
 Python control flow.
 
-  simclr = RRC -> HFlip -> RandomApply(Jitter, .8) -> RandomApply(Gray, .2)
+  simclr            = RRC -> HFlip -> RandomApply(Jitter, .8) -> RandomApply(Gray, .2)
+  simclr_hq         = simclr + RandomApply(Blur, .5)
+  simclr_hq_cutout  = simclr_hq + RandomApply(CutOut, .5)
 """
 
 from __future__ import annotations
@@ -18,9 +21,12 @@ from typing import Any, List, Mapping, Optional
 
 import torch
 
-from contrad_tpu_torch.augment.color import ColorJitter, Grayscale
+from contrad_tpu_torch.augment.color import (
+    ColorJitter, GaussianBlur, GaussianNoise, Grayscale)
+from contrad_tpu_torch.augment.diffaug import DiffAugment
 from contrad_tpu_torch.augment.spatial import (
-    HorizontalFlip, Params, RandomResizeCrop, _uniform)
+    CutOut, HFlipRandomCrop, HorizontalFlip, Params, RandomCrop,
+    RandomResizeCrop, _uniform)
 
 
 @dataclasses.dataclass
@@ -77,9 +83,15 @@ class Compose:
 
 # Default hyperparameters: reference configs/defaults/augment.gin.
 _DEFAULTS = {
+    "gaussian": {"sigma": 0.12},
+    "random_crop": {"max_pixels": 4, "padding_mode": "reflection"},
+    "hfrt": {"max_pixels": 4, "padding_mode": "reflection"},
     "color_jitter": {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4,
                      "hue": 0.1},
+    "cutout": {"length": 15},
     "rrc": {"scale": (0.2, 1.0), "ratio": (0.75, 4.0 / 3.0)},
+    "blur": {"sigma_range": (0.1, 2.0)},
+    "diffaug": {"policy": "color,cutout"},
 }
 
 
@@ -96,18 +108,35 @@ def get_augment(mode: str = "none", params: Optional[Mapping] = None):
     table."""
     if mode == "none":
         return NoAugment()
+    if mode == "gaussian":
+        return GaussianNoise(**_hyper(params, "gaussian"))
     if mode == "hflip":
         return HorizontalFlip()
-    if mode == "simclr":
-        return Compose(
+    if mode == "hfrt":
+        return HFlipRandomCrop(**_hyper(params, "hfrt"))
+    if mode == "color_jitter":
+        return ColorJitter(**_hyper(params, "color_jitter"))
+    if mode == "cutout":
+        return CutOut(**_hyper(params, "cutout"))
+    if mode == "diffaug":
+        return DiffAugment(**_hyper(params, "diffaug"))
+    if mode in ("simclr", "simclr_hq", "simclr_hq_cutout"):
+        stages = [
             RandomResizeCrop(**_hyper(params, "rrc")),
             HorizontalFlip(),
             RandomApply(ColorJitter(**_hyper(params, "color_jitter")), 0.8),
             RandomApply(Grayscale(), 0.2),
-        )
+        ]
+        if mode != "simclr":
+            stages.append(RandomApply(GaussianBlur(**_hyper(params, "blur")),
+                                      0.5))
+        if mode == "simclr_hq_cutout":
+            stages.append(RandomApply(CutOut(**_hyper(params, "cutout")), 0.5))
+        return Compose(*stages)
     raise NotImplementedError(f"unknown augmentation mode: {mode}")
 
 
-__all__ = ["AugRng", "Compose", "RandomApply", "NoAugment",
-           "get_augment", "ColorJitter", "Grayscale", "HorizontalFlip",
-           "RandomResizeCrop"]
+__all__ = ["AugRng", "Compose", "RandomApply", "NoAugment", "get_augment",
+           "ColorJitter", "CutOut", "DiffAugment", "GaussianBlur",
+           "GaussianNoise", "Grayscale", "HFlipRandomCrop", "HorizontalFlip",
+           "RandomCrop", "RandomResizeCrop"]

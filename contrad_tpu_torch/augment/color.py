@@ -1,6 +1,6 @@
-"""Colour augmentations of the simclr chain (the port of
-``contrad_tpu/augment/color.py``: ``color_jitter``, ``grayscale`` and the
-HSV conversions).
+"""Colour augmentations (the port of ``contrad_tpu/augment/color.py``:
+``color_jitter``, ``grayscale``, the HSV conversions, ``gaussian_noise`` and
+``gaussian_blur``).
 
 The HSV adjustment keeps the reference's straight-through gradient
 (RandomHSVFunction, ``color_jitter.py:81-104``): its backward passes the
@@ -9,6 +9,7 @@ incoming gradient through unchanged.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -136,4 +137,72 @@ class Grayscale:
         return (x * w).sum(dim=-1, keepdim=True).expand(x.shape)
 
 
-__all__ = ["ColorJitter", "Grayscale", "rgb2hsv", "hsv2rgb"]
+class GaussianNoise:
+    """Additive Gaussian noise of std ``sigma``, clamped to [0, 1]
+    (reference Gaussian layer)."""
+
+    def __init__(self, sigma: float = 0.12):
+        self.sigma = sigma
+
+    def sample(self, shape, rng) -> Params:
+        """``noise``: N(0, 1), the batch's shape."""
+        return {"noise": torch.randn(tuple(shape), generator=rng.device,
+                                     device=rng.device.device)}
+
+    def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
+        return torch.clamp(x + params["noise"].to(x.dtype) * self.sigma,
+                           0.0, 1.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _reflect_columns(dim: int, radius: int, device: torch.device
+                     ) -> torch.Tensor:
+    """(dim, 2 * radius + 1) source column of each tap of each output row
+    under reflect padding without repeating the edge (``jnp.pad``'s
+    ``reflect``); made once per size and device."""
+    cols = torch.arange(dim)[:, None] + torch.arange(-radius, radius + 1)
+    cols = cols.abs()
+    cols = torch.where(cols >= dim, 2 * dim - 2 - cols, cols)
+    return cols.to(device)
+
+
+class GaussianBlur:
+    """Gaussian blur with ``ksize = (H // 10) | 1`` taps and one sigma per
+    batch, reflect padding (reference GaussianBlur layer,
+    augment/__init__.py:53-78).
+
+    As in the JAX package, the separable filter is two banded-Toeplitz
+    products ``T_h @ X @ T_w^T`` with the padding folded into ``T``; ``T``
+    is built on the images' device from the drawn sigma."""
+
+    def __init__(self, sigma_range: Tuple[float, float] = (0.1, 2.0)):
+        self.sigma_range = tuple(sigma_range)
+
+    def sample(self, shape, rng) -> Params:
+        """``sigma``: one scalar in ``sigma_range`` for the batch."""
+        return {"sigma": _uniform((), rng, *self.sigma_range)}
+
+    @staticmethod
+    def toeplitz(sigma: torch.Tensor, dim: int, radius: int) -> torch.Tensor:
+        """(dim, dim) float32 ``T`` with ``T[i, reflect(i - r + k)] +=
+        kern[k]``."""
+        coords = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                              device=sigma.device)
+        kern = torch.exp(-coords**2 / (2.0 * sigma.float()**2))
+        kern = kern / kern.sum()
+        cols = _reflect_columns(dim, radius, sigma.device)
+        t = torch.zeros(dim, dim, dtype=torch.float32, device=sigma.device)
+        return t.scatter_add_(1, cols, kern.expand(dim, -1).contiguous())
+
+    def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        radius = (h // 10) // 2
+        th = self.toeplitz(params["sigma"], h, radius).to(x.dtype)
+        tw = th if w == h else self.toeplitz(params["sigma"], w,
+                                             radius).to(x.dtype)
+        y = torch.einsum("Hh,nhwc->nHwc", th, x)
+        return torch.einsum("Ww,nhwc->nhWc", tw, y)
+
+
+__all__ = ["ColorJitter", "Grayscale", "GaussianNoise", "GaussianBlur",
+           "rgb2hsv", "hsv2rgb"]

@@ -1,6 +1,6 @@
-"""Spatial augmentations of the simclr chain (the port of
-``contrad_tpu/augment/spatial.py``: ``random_resize_crop`` and
-``horizontal_flip``).
+"""Spatial augmentations (the port of ``contrad_tpu/augment/spatial.py``:
+``horizontal_flip``, ``hflip_random_crop``, ``random_crop``,
+``random_resize_crop`` and ``cutout``).
 
 Each augmentation is split in two: ``sample(shape, rng)`` draws the
 per-sample parameters for an NHWC batch of that shape from ``rng.device``
@@ -26,6 +26,12 @@ def _uniform(shape, rng, lo: float = 0.0, hi: float = 1.0):
     return u * (hi - lo) + lo
 
 
+def _randint(shape, rng, lo: int, hi: int) -> torch.Tensor:
+    """Integers in ``[lo, hi)``, as ``jax.random.randint`` draws them."""
+    return torch.randint(lo, hi, shape, generator=rng.device,
+                         device=rng.device.device)
+
+
 class HorizontalFlip:
     """Per-sample 50% mirror (reference HorizontalFlipLayer, spatial.py:71-93)."""
 
@@ -34,6 +40,71 @@ class HorizontalFlip:
 
     def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
         return torch.where(params["flip"][:, None, None, None], x.flip(2), x)
+
+
+class RandomCrop:
+    """Integer translation of up to ``max_pixels``, nearest sampling
+    (reference RandomCrop, spatial.py:44-67). The translation is divided by
+    ``W / 2`` on both axes, as the JAX package does."""
+
+    def __init__(self, max_pixels: int, padding_mode: str = "reflection"):
+        self.max_pixels = max_pixels
+        self.padding_mode = padding_mode
+
+    def sample(self, shape, rng) -> Params:
+        """``bias`` (N, 2): integer pixels in ``[-max_pixels, max_pixels]``."""
+        return {"bias": _randint((shape[0], 2), rng, -self.max_pixels,
+                                 self.max_pixels + 1)}
+
+    def _warp(self, x: torch.Tensor, sign: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+        bias = bias.float() / (x.shape[2] / 2.0)
+        return axis_aligned_transform(
+            x, sign, torch.ones_like(sign), bias[:, 0], bias[:, 1],
+            mode="nearest", padding_mode=self.padding_mode)
+
+    def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
+        ones = torch.ones(x.shape[0], device=x.device)
+        return self._warp(x, ones, params["bias"])
+
+
+class HFlipRandomCrop(RandomCrop):
+    """Random mirror and an integer translation (reference
+    HorizontalFlipRandomCrop, spatial.py:15-40)."""
+
+    def sample(self, shape, rng) -> Params:
+        """``flip`` (N,) bool, then ``bias`` as :class:`RandomCrop`."""
+        flip = _uniform((shape[0],), rng) < 0.5
+        return dict(super().sample(shape, rng), flip=flip)
+
+    def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
+        sign = params["flip"].float() * 2.0 - 1.0
+        return self._warp(x, sign, params["bias"])
+
+
+class CutOut:
+    """Zero a ``length`` x ``length`` square at a random centre, clipped at
+    the borders (reference CutOut, spatial.py:152-181)."""
+
+    def __init__(self, length: int):
+        if length % 2 == 0:
+            raise ValueError("CutOut only accepts odd lengths (reference "
+                             "spatial.py:156)")
+        self.radius = (length - 1) // 2
+
+    def sample(self, shape, rng) -> Params:
+        """Centres ``hc`` in ``[0, H)`` and ``wc`` in ``[0, W)``, (N,) each."""
+        n, h, w = shape[0], shape[1], shape[2]
+        return {"hc": _randint((n,), rng, 0, h), "wc": _randint((n,), rng, 0, w)}
+
+    def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        ii = torch.arange(h, device=x.device)
+        jj = torch.arange(w, device=x.device)
+        in_h = (ii[None, :] - params["hc"][:, None]).abs() <= self.radius
+        in_w = (jj[None, :] - params["wc"][:, None]).abs() <= self.radius
+        cut = in_h[:, :, None] & in_w[:, None, :]  # (N, H, W)
+        return x * (1.0 - cut.to(x.dtype))[..., None]
 
 
 def crop_params(target_area: torch.Tensor, aspect: torch.Tensor,

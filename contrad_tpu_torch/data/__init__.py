@@ -1,8 +1,13 @@
-"""Dataset registry (the ``cifar10[_hflip]`` and ``synthetic*`` branches of
-``contrad_tpu/data/__init__.py``).
+"""Dataset registry (the port of ``contrad_tpu/data/__init__.py`` for
+unconditional training: ``cifar10[_hflip]``, ``cifar100[_hflip]``,
+``celeba128``, ``afhq_{cat,dog,wild}`` and ``synthetic*``).
 
 ``get_dataset(name)`` -> ``(train, test, image_size)`` as uint8 NHWC
-:class:`ArrayDataset`s. ``$DATA_DIR`` points at the data root.
+:class:`ArrayDataset`s; ``get_image_size(name)`` gives the image shape
+without loading anything. ``$DATA_DIR`` points at the data root. A
+dataset's ``train_aug`` names the augmentation the reference baked into its
+transforms (``hflip`` for the ``_hflip`` variants and AFHQ); the trainers
+apply it on the device.
 """
 
 from __future__ import annotations
@@ -10,32 +15,67 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
-from contrad_tpu_torch.data.cifar import load_cifar10
+from contrad_tpu_torch.data.cifar import load_cifar10, load_cifar100
 from contrad_tpu_torch.data.core import ArrayDataset, DeviceBatchIterator
+from contrad_tpu_torch.data.folder import load_image_folder
 from contrad_tpu_torch.data.synthetic import synthetic_dataset
 
 DATA_PATH = os.environ.get("DATA_DIR", "data/")
 
 Entry = Tuple[ArrayDataset, Optional[ArrayDataset], Tuple[int, int, int]]
 
+_AFHQ = ("afhq_cat", "afhq_dog", "afhq_wild")
+
+
+def get_image_size(dataset: str) -> Tuple[int, int, int]:
+    """Image shape of a dataset, without loading it."""
+    if dataset in ("cifar10", "cifar10_hflip", "cifar100", "cifar100_hflip"):
+        return (32, 32, 3)
+    if dataset == "celeba128":
+        return (128, 128, 3)
+    if dataset in _AFHQ:
+        return (512, 512, 3)
+    if dataset.startswith("synthetic"):
+        parts = dataset.split("_")
+        size = int(parts[1]) if len(parts) > 1 else 32
+        return (size, size, 3)
+    raise NotImplementedError(f"unknown dataset: {dataset}")
+
 
 def get_dataset(dataset: str, data_path: Optional[str] = None) -> Entry:
     root = data_path or DATA_PATH
 
-    if dataset in ("cifar10", "cifar10_hflip"):
-        train, test = load_cifar10(root)
+    if dataset in ("cifar10", "cifar10_hflip", "cifar100", "cifar100_hflip"):
+        loader = load_cifar100 if dataset.startswith("cifar100") else load_cifar10
+        train, test = loader(root)
         if dataset.endswith("_hflip"):
             train.train_aug = "hflip"  # DiffAug recipe (datasets.py:49-69)
         return train, test, (32, 32, 3)
 
+    if dataset == "celeba128":
+        image_size = get_image_size(dataset)
+        split = os.path.join(root, "CelebAMask-HQ", "CelebA-128-split")
+        return (load_image_folder(os.path.join(split, "train"), image_size),
+                load_image_folder(os.path.join(split, "test"), image_size),
+                image_size)
+
+    if dataset in _AFHQ:
+        image_size = get_image_size(dataset)
+        kind = dataset.split("_", 1)[1]
+        train = load_image_folder(os.path.join(root, "afhq", kind, "train"),
+                                  image_size)
+        train.train_aug = "hflip"  # reference datasets.py:83-126
+        val = load_image_folder(os.path.join(root, "afhq", kind, "val"),
+                                image_size)
+        return train, val, image_size
+
     if dataset.startswith("synthetic"):
         # synthetic[_<size>[_<ntrain>]]: procedural data for smoke runs.
         parts = dataset.split("_")
-        size = int(parts[1]) if len(parts) > 1 else 32
         n_train = int(parts[2]) if len(parts) > 2 else 2048
         n_test = max(512, min(n_train // 5, 10000))
         class_signal = len(parts) > 2
-        image_size = (size, size, 3)
+        image_size = get_image_size(dataset)
         train = synthetic_dataset(image_size, n=n_train, seed=0,
                                   class_signal=class_signal)
         test = synthetic_dataset(image_size, n=n_test, seed=1,
@@ -46,4 +86,5 @@ def get_dataset(dataset: str, data_path: Optional[str] = None) -> Entry:
 
 
 __all__ = ["ArrayDataset", "DeviceBatchIterator", "get_dataset",
-           "synthetic_dataset", "DATA_PATH"]
+           "get_image_size", "load_image_folder", "synthetic_dataset",
+           "DATA_PATH"]

@@ -1,4 +1,4 @@
-"""CIFAR-10 loader from the standard python pickle batches (copy of
+"""CIFAR-10/100 loaders from the standard python pickle batches (copy of
 ``contrad_tpu/data/cifar.py``; the files must be present under $DATA_DIR)."""
 
 from __future__ import annotations
@@ -45,3 +45,11 @@ def load_cifar10(root: str) -> Tuple[ArrayDataset, ArrayDataset]:
     test_x, test_y = _load_batch(os.path.join(base, "test_batch"), b"labels")
     return (ArrayDataset(train_x, train_y, n_classes=10),
             ArrayDataset(test_x, test_y, n_classes=10))
+
+
+def load_cifar100(root: str) -> Tuple[ArrayDataset, ArrayDataset]:
+    base = _maybe_extract(root, "cifar-100-python.tar.gz", "cifar-100-python")
+    train_x, train_y = _load_batch(os.path.join(base, "train"), b"fine_labels")
+    test_x, test_y = _load_batch(os.path.join(base, "test"), b"fine_labels")
+    return (ArrayDataset(train_x, train_y, n_classes=100),
+            ArrayDataset(test_x, test_y, n_classes=100))

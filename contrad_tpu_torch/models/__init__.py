@@ -3,7 +3,12 @@
 ``get_architecture(name, image_size, device)`` returns ``(G, D)`` modules on
 ``device``:
   * ``sndcgan``        — G_SNDCGAN + D_SNDCGAN(mlp_linear, d_hidden=512)
+  * ``snresnet18``     — G_SNDCGAN + D_SNResNet18(mlp_linear, d_hidden=1024)
   * ``stylegan2``      — small32 StyleGAN2 G + ResidualDiscriminatorP(d_hidden=512)
+  * ``stylegan2_512``  — full StyleGAN2 G/D, channel_multiplier 1.0,
+    ``d_hidden=512`` (the 512x512 AFHQ recipe), unpacked: the JAX
+    package's space-to-depth packing of the shallow levels is a TPU layout
+    of the same function and parameter tree
   * ``stylegan2_tiny`` — test width (0.25x channels, n_mlp=2, d_hidden=32)
 """
 
@@ -18,6 +23,10 @@ from contrad_tpu_torch import resolve_device
 from contrad_tpu_torch.models.base import Discriminator, l2_normalize_rows
 
 
+ARCHITECTURES = ("sndcgan", "snresnet18", "stylegan2", "stylegan2_512",
+                 "stylegan2_tiny")
+
+
 def get_architecture(architecture: str, image_size: Tuple[int, int, int],
                      device: str | torch.device = "cuda",
                      seed: Optional[int] = None
@@ -25,11 +34,12 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
     """Build (G, D) in float32 on ``device``; ``seed`` makes the random
     initialisation reproducible."""
     from contrad_tpu_torch.models.sndcgan import DSndcgan, GSndcgan
+    from contrad_tpu_torch.models.snresnet import DSnresnet18
     from contrad_tpu_torch.models.stylegan2 import DStylegan2, GStylegan2
 
     device = resolve_device(device)
     resolution = image_size[0]
-    if architecture not in ("sndcgan", "stylegan2", "stylegan2_tiny"):
+    if architecture not in ARCHITECTURES:
         raise NotImplementedError(f"unknown architecture: {architecture}")
     # Parameters are drawn on the CPU from a forked global generator, so a
     # seed gives the same weights on every device and the caller's random
@@ -40,9 +50,17 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
         if architecture == "sndcgan":
             generator = GSndcgan(image_size)
             discriminator = DSndcgan(image_size, d_hidden=512)
+        elif architecture == "snresnet18":
+            generator = GSndcgan(image_size)
+            discriminator = DSnresnet18(d_hidden=1024)
         elif architecture == "stylegan2":
             generator = GStylegan2(size=resolution, n_mlp=8, small32=True)
             discriminator = DStylegan2(size=resolution, small32=True,
+                                       d_hidden=512)
+        elif architecture == "stylegan2_512":
+            generator = GStylegan2(size=resolution, n_mlp=8,
+                                   channel_multiplier=1.0)
+            discriminator = DStylegan2(size=resolution, channel_multiplier=1.0,
                                        d_hidden=512)
         else:
             generator = GStylegan2(size=resolution, n_mlp=2,
@@ -52,4 +70,5 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
     return generator.to(device), discriminator.to(device)
 
 
-__all__ = ["get_architecture", "Discriminator", "l2_normalize_rows"]
+__all__ = ["ARCHITECTURES", "get_architecture", "Discriminator",
+           "l2_normalize_rows"]

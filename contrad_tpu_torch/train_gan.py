@@ -50,10 +50,10 @@ def build(P: argparse.Namespace):
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import GANTrainer, ScheduledAdam
 
-    if P.architecture != "sndcgan":
+    if P.architecture not in ("sndcgan", "snresnet18"):
         raise NotImplementedError(
-            f"train_gan runs sndcgan; {P.architecture!r} is not ported to "
-            f"it yet")
+            f"train_gan runs sndcgan and snresnet18; {P.architecture!r} is "
+            f"not ported to it yet")
     device = resolve_device(P.device)
     cfg = finalize_options(load_config(default_config_files(P.config),
                                        P.override))

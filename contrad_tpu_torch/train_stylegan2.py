@@ -9,7 +9,10 @@ repo root's ``train_stylegan2.py``):
 It reads the same TOML configs and prints the same scalar names (``D_loss``,
 ``D_penalty``, ``D_real``, ``D_gen``, ``D_r1``, ``G_loss``). It runs on the
 card; ``--device cpu`` runs it on the CPU. Checkpoints, FID and the progress
-GIF are not ported yet.
+GIF are not ported yet: ``--evaluate_every``, ``--n_eval_avg``, ``--no_fid``
+and ``--no_gif`` are accepted so that the JAX package's command lines parse,
+and the run says at its start that it evaluates nothing. The port has no
+packed layouts, so it takes no ``--no_packed_aug``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="StyleGAN2 training on PyTorch")
     p.add_argument("config", type=str)
-    p.add_argument("architecture", type=str, help="stylegan2 | stylegan2_tiny")
+    p.add_argument("architecture", type=str,
+                   help="stylegan2 | stylegan2_512 | stylegan2_tiny")
     p.add_argument("--mode", default="contrad", type=str)
     p.add_argument("--aug", default="none", type=str)
     p.add_argument("--use_warmup", action="store_true")
@@ -40,6 +44,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ema_start_k", default=None, type=int)
     p.add_argument("--halflife_lr", default=0, type=int,
                    help="LR half-life in images; 0 disables decay")
+    p.add_argument("--no_fid", action="store_true")
+    p.add_argument("--no_gif", action="store_true")
+    p.add_argument("--n_eval_avg", default=3, type=int)
+    p.add_argument("--evaluate_every", default=2000, type=int)
     p.add_argument("--print_every", default=50, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--override", nargs="*", default=[])
@@ -110,6 +118,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
     print(str(opt.to_dict()))
     print(f"Use G moving average: {accum}")
     print(f"device: {trainer.device}")
+    print(f"not ported: in-loop FID (--evaluate_every {P.evaluate_every}, "
+          f"--n_eval_avg {P.n_eval_avg}{', --no_fid' if P.no_fid else ''}) "
+          f"and the progress GIF{' (--no_gif)' if P.no_gif else ''}; "
+          f"this run evaluates nothing")
 
     history = []
     sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
@@ -132,6 +144,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
             print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
             history.append(dict(m, step=step, seconds_per_step=dt / steps))
             t0, steps = time.perf_counter(), 0
+    if trainer.device.type == "cuda":
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print("Training finished.")
     return history
 

@@ -85,6 +85,39 @@ def test_blur_first_and_second_derivatives_match_jax(pad, up, c):
     np.testing.assert_allclose(gg.numpy(), want_gg, **TOL)
 
 
+@pytest.mark.parametrize("pad,up", CASES)
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_smoke_derivative_references_are_the_plain_versions_autograd(
+        pad, up, symmetric):
+    """``chip_smoke.py`` holds the kernel's backward and double backward to
+    forward calls of the plain version (reversed taps, complementary pads);
+    here those equal autograd through the plain version, and the wrapper's
+    ``Function`` on the CPU gives the same. StyleGAN2's taps are symmetric,
+    so lopsided ones check the reversal as well."""
+    from chip_smoke import case_taps, kernel_derivatives, plain_derivatives
+
+    taps = case_taps(dict(up=up, adjoint=False))
+    if not symmetric:
+        taps = ((0.1, 0.2, 0.3, 0.4), (0.5, -0.25, 1.0, 2.0))
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 11, 9, 3)))
+    y_shape = port_blur.blur2d_plain(x, *taps, pad).shape
+    g = torch.from_numpy(rng.normal(size=y_shape))
+    hh = torch.from_numpy(rng.normal(size=x.shape))
+    xx = x.clone().requires_grad_(True)
+    gg = g.clone().requires_grad_(True)
+    y = port_blur.blur2d_plain(xx, *taps, pad)
+    (gx,) = torch.autograd.grad(y, xx, gg, create_graph=True)
+    (g2,) = torch.autograd.grad(gx, gg, hh)
+    want = (y.detach(), gx.detach(), g2)
+    for got in (plain_derivatives(port_blur, x, g, hh, taps, pad),
+                kernel_derivatives(port_blur, x, g, hh, taps, pad)):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                       atol=1e-12)
+
+
 def test_blur_taps_are_the_jax_separation():
     from contrad_tpu.ops.upfirdn2d import _separate
 
@@ -122,7 +155,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 def _main_path_cases():
     from chip_smoke import blur_cases
 
-    return [(c["shape"], c["pad"]) for c in blur_cases() if c["per_step"]]
+    return [(c["shape"], c["pad"], c["per_step"]) for c in blur_cases()]
 
 
 def _emulate_kernel(x, taps_v, taps_h, pad, plan):
@@ -166,8 +199,10 @@ def _emulate_kernel(x, taps_v, taps_h, pad, plan):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_launch_plan_puts_the_main_path_on_the_vector_path(dtype):
     cases = _main_path_cases()
-    assert len(cases) == 30  # 15 forward shapes and their adjoints
-    for shape, pad in cases:
+    # the 32x32 step's 15 forward shapes, the 512x512 step's 35, and
+    # their adjoints
+    assert len(cases) == 100
+    for shape, pad, per_step in cases:
         plan = port_blur.launch_plan(shape, 4, pad, dtype)
         assert plan.vector == 1 and plan.groups * 16 // dtype.itemsize == shape[3]
         assert plan.threads % 32 == 0 and plan.threads <= port_blur._MAX_THREADS
@@ -176,8 +211,17 @@ def test_launch_plan_puts_the_main_path_on_the_vector_path(dtype):
         assert plan.threads - plan.wseg * plan.gb < 32
         assert plan.wseg * (plan.nseg - 1) < plan.wo <= plan.wseg * plan.nseg
         assert plan.rows * (plan.strips - 1) < plan.ho <= plan.rows * plan.strips
-        # at least two blocks for each of the card's 132 SMs
-        assert plan.n * plan.strips * plan.nseg * plan.csplit >= 2 * 132
+        blocks = plan.n * plan.strips * plan.nseg * plan.csplit
+        if "stylegan2_32" in per_step:
+            # at least two blocks for each of the card's 132 SMs
+            assert blocks >= 2 * 132
+        else:
+            # the 512x512 step's small blurs: two blocks for each SM, short
+            # of it by less than one strip's blocks where whole strips do
+            # not divide the output so, or one strip per output row where
+            # it has too few rows
+            base = plan.n * plan.nseg * plan.csplit  # blocks per strip
+            assert blocks > 2 * 132 - base or plan.strips == plan.ho
 
 
 @pytest.mark.parametrize("shape,dtype,aligned,vector", [

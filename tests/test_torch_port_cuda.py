@@ -2,7 +2,8 @@
 every code path it has (16-byte packs in float32 and bfloat16; one channel a
 pack where C * itemsize % 16 != 0 or the data is not 16-byte aligned; strips
 that do not divide the height; rows wider than one block; asymmetric pads;
-1 to 4 taps), under a CUDA graph, and the StyleGAN2 G and D going through it. Every test here needs a CUDA card
+1 to 4 taps; the 512x512 recipe's largest tensors), under a CUDA graph, and
+the StyleGAN2 G and D going through it. Every test here needs a CUDA card
 and skips without one (the kernel has no CPU mode). The file imports
 nothing of JAX, so it runs on a machine without it:
 
@@ -67,6 +68,26 @@ def test_kernel_matches_plain_forward_backward_and_double(cuda, dtype, tol,
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape,pad", [
+    ((48, 512, 512, 32), (2, 2)),  # the 512x512 D phase's largest blur
+    ((48, 513, 513, 32), (1, 1)),  # its adjoint
+])
+def test_kernel_at_the_largest_tensors_of_the_512_recipe(cuda, shape, pad):
+    """The largest tensors any path of the port gives the kernel: 1.6 GB
+    in and 1.6 GB out in float32, 48 images on the grid's y."""
+    taps = blur_taps(make_kernel([1, 3, 3, 1]), 1)
+    x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    got = blur.blur2d(x, *taps, pad)
+    want = blur.blur2d_plain(x, *taps, pad)
+    assert got.shape == want.shape == (shape[0], shape[1] + sum(pad) - 3,
+                                       shape[2] + sum(pad) - 3, shape[3])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # the last image's last rows, the far end of both tensors
+    torch.testing.assert_close(got[-1, -4:], want[-1, -4:], rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

@@ -71,10 +71,10 @@ class RecordingSGD:
             p.sub_(LR * g)
 
 
-def jax_d_draws(mode, penalty, key, n):
+def jax_d_draws(mode, penalty, key, n, img=IMG):
     """The D loss's draws that ``contrad_tpu/training/modes.py`` makes from
     ``key`` (``_std_loss_D`` and the others), in the port's form."""
-    h, w = IMG[:2]
+    h, w = img[:2]
     aug, pen_key = None, key
     if mode in ("aug", "aug_both"):
         rng_aug, pen_key = jax.random.split(key)
@@ -93,7 +93,8 @@ def jax_d_draws(mode, penalty, key, n):
     return Draws(aug, pen)
 
 
-def jax_step_draws(mode, penalty, key, n, n_critic, real_flip):
+def jax_step_draws(mode, penalty, key, n, n_critic, real_flip, img=IMG,
+                   nz=NZ):
     """Every draw of ``GANTrainer._step`` (step.py:238-275) from the state's
     key, in the port's :class:`StepDraws` form (under ``enable_x64``)."""
     rng, real = key, None
@@ -103,19 +104,24 @@ def jax_step_draws(mode, penalty, key, n, n_critic, real_flip):
     critic = []
     for _ in range(n_critic):  # _d_substep
         rng, z_rng, _, loss_rng, _ = jax.random.split(rng, 5)
-        z = jax.random.uniform(z_rng, (n, NZ), minval=-1.0, maxval=1.0)
-        critic.append(({"z": t(z)}, jax_d_draws(mode, penalty, loss_rng, n)))
+        z = jax.random.uniform(z_rng, (n, nz), minval=-1.0, maxval=1.0)
+        critic.append(({"z": t(z)}, jax_d_draws(mode, penalty, loss_rng, n,
+                                                img)))
     rng, z_rng, _, g_loss_rng, _, _ = jax.random.split(rng, 6)
-    z = jax.random.uniform(z_rng, (n, NZ), minval=-1.0, maxval=1.0)
-    g_aug = (jax_simclr_params(g_loss_rng, n, *IMG[:2]) if mode in G_AUG
+    z = jax.random.uniform(z_rng, (n, nz), minval=-1.0, maxval=1.0)
+    g_aug = (jax_simclr_params(g_loss_rng, n, *img[:2]) if mode in G_AUG
              else None)
     return StepDraws(real, critic, ({"z": t(z)}, g_aug))
 
 
 def run_case(pair, mode, penalty="none", loss="nonsat", n_critic=1,
-             adam=False, real_flip=False, ema=False):
+             adam=False, real_flip=False, ema=False, n=N):
+    """One ``train_gan.py`` step of both packages on the pair's weights and
+    state (a pair as ``build_sndcgan_pair`` makes it, of any image size
+    and D) with the same draws, at batch ``n``."""
     G, D, g_vars, d_vars, port = pair
-    images = np.random.default_rng(7).uniform(size=(n_critic * N,) + IMG)
+    img = tuple(G.image_size)
+    images = np.random.default_rng(7).uniform(size=(n_critic * n,) + img)
     with jax.enable_x64(True):
         tx = (make_optimizer(2e-4, (0.5, 0.999), warmup=10, use_warmup=True)
               if adam else optax.sgd(LR))
@@ -135,7 +141,8 @@ def run_case(pair, mode, penalty="none", loss="nonsat", n_critic=1,
             g_ema_params=g_vars["params"] if ema else None,
             g_ema_state=g_state if ema else None)
         new, metrics = jax.jit(jt._step)(state, jnp.asarray(images), 0.9)
-        draws = jax_step_draws(mode, penalty, key, N, n_critic, real_flip)
+        draws = jax_step_draws(mode, penalty, key, n, n_critic, real_flip,
+                               img, G.nz)
     new, metrics = to_np(new), to_np(metrics)
 
     pg, pd = port()

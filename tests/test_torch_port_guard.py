@@ -109,6 +109,15 @@ def test_trainer_cli_defaults_to_the_card(no_card):
               "options.max_steps=1"])
 
 
+def test_contrad_cli_defaults_to_the_card(no_card):
+    from contrad_tpu_torch.train_stylegan2_contraD import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["configs/gan/stylegan2/afhq_dog_style64.toml", "stylegan2_tiny",
+              "--override", "options.dataset=synthetic_8_16",
+              "options.max_steps=1"])
+
+
 def test_gan_cli_defaults_to_the_card(no_card):
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.train_gan import main

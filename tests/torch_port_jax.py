@@ -137,13 +137,104 @@ def jax_random_apply_mask(key, n, p):
     return t(mask), r_fn
 
 
-def jax_simclr_params(key, n, h, w):
-    """Parameters of ``get_augment('simclr')(key, x)`` for an (n, h, w, 3)
-    batch, in the port's ``Compose`` layout (compose folds in the stage
-    index, augment/__init__.py:59-62)."""
-    k = [jax.random.fold_in(key, i) for i in range(4)]
+def jax_random_crop_params(key, n, max_pixels):
+    """augment/spatial.py:80-82 (random_crop)."""
+    return {"bias": t(jax.random.randint(key, (n, 2), -max_pixels,
+                                         max_pixels + 1)).long()}
+
+
+def jax_hfrt_params(key, n, max_pixels):
+    """augment/spatial.py:62-67 (hflip_random_crop)."""
+    r_flip, r_bias = jax.random.split(key)
+    return dict(jax_random_crop_params(r_bias, n, max_pixels),
+                flip=t(jax.random.bernoulli(r_flip, 0.5, (n,))))
+
+
+def jax_cutout_params(key, n, h, w):
+    """augment/spatial.py:166-168 (cutout)."""
+    r_h, r_w = jax.random.split(key)
+    return {"hc": t(jax.random.randint(r_h, (n, 1, 1), 0, h)[:, 0, 0]).long(),
+            "wc": t(jax.random.randint(r_w, (n, 1, 1), 0, w)[:, 0, 0]).long()}
+
+
+def jax_noise_params(key, shape):
+    """augment/color.py:195 (gaussian_noise)."""
+    return {"noise": t(jax.random.normal(key, shape))}
+
+
+def jax_blur_params(key, sigma_range=(0.1, 2.0)):
+    """augment/color.py:224-225 (gaussian_blur): one sigma per batch."""
+    return {"sigma": t(jax.random.uniform(key, (), minval=sigma_range[0],
+                                          maxval=sigma_range[1]))}
+
+
+def jax_diffaug_params(key, policy, shape):
+    """augment/diffaug.py (diff_augment): one parameter set per op of the
+    chain, each op drawing from ``fold_in(key, its index)``."""
+    n, h, w = shape[0], shape[1], shape[2]
+    names = [p for p in policy.split(",") if p]
+    ops = [op for p in names for op in {
+        "color": ("brightness", "saturation", "contrast"),
+        "translation": ("translation",), "cutout": ("cutout",)}[p]]
+    out = []
+    for i, op in enumerate(ops):
+        k = jax.random.fold_in(key, i)
+        if op in ("brightness", "saturation", "contrast"):
+            out.append({"u": t(jax.random.uniform(k, (n, 1, 1, 1))[:, 0, 0, 0])})
+        elif op == "translation":
+            sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
+            r_h, r_w = jax.random.split(k)
+            out.append({
+                "th": t(jax.random.randint(r_h, (n, 1, 1), -sh, sh + 1)[:, 0, 0]).long(),
+                "tw": t(jax.random.randint(r_w, (n, 1, 1), -sw, sw + 1)[:, 0, 0]).long()})
+        else:
+            ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
+            r_h, r_w = jax.random.split(k)
+            out.append({
+                "off_h": t(jax.random.randint(
+                    r_h, (n, 1, 1), 0, h + (1 - ch % 2))[:, 0, 0]).long(),
+                "off_w": t(jax.random.randint(
+                    r_w, (n, 1, 1), 0, w + (1 - cw % 2))[:, 0, 0]).long()})
+    return out
+
+
+def _jitter_ranges(hyper):
+    from contrad_tpu.augment.color import _check_range
+
+    j = {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4, "hue": 0.1,
+         **(hyper or {}).get("color_jitter", {})}
+    return dict(b=_check_range(j["brightness"], "brightness"),
+                c=_check_range(j["contrast"], "contrast"),
+                s=_check_range(j["saturation"], "saturation"),
+                h=_check_range(j["hue"], "hue", center=0.0, bound=(-0.5, 0.5),
+                               clip_first_on_zero=False))
+
+
+def jax_simclr_params(key, n, h, w, mode="simclr", hyper=None):
+    """Parameters of ``get_augment(mode, hyper)(key, x)`` for an (n, h, w, 3)
+    batch, ``mode`` one of ``simclr``, ``simclr_hq``, ``simclr_hq_cutout``,
+    ``hyper`` a config's [augment] table (rrc, color_jitter, blur, cutout;
+    the defaults otherwise), in the port's ``Compose`` layout (compose folds
+    in the stage index, augment/__init__.py:59-62)."""
+    hyper = hyper or {}
+    n_stages = {"simclr": 4, "simclr_hq": 5, "simclr_hq_cutout": 6}[mode]
+    k = [jax.random.fold_in(key, i) for i in range(n_stages)]
+    scale = tuple(hyper.get("rrc", {}).get("scale", (0.2, 1.0)))
     jmask, jkey = jax_random_apply_mask(k[2], n, 0.8)
     gmask, _ = jax_random_apply_mask(k[3], n, 0.2)
-    return [jax_rrc_params(k[0], n, h, w), jax_flip_params(k[1], n),
-            {"mask": jmask, "inner": jax_jitter_params(jkey, n)},
-            {"mask": gmask, "inner": {}}]
+    params = [jax_rrc_params(k[0], n, h, w, scale=scale),
+              jax_flip_params(k[1], n),
+              {"mask": jmask, "inner": jax_jitter_params(
+                  jkey, n, **_jitter_ranges(hyper))},
+              {"mask": gmask, "inner": {}}]
+    if n_stages > 4:
+        bmask, bkey = jax_random_apply_mask(k[4], n, 0.5)
+        sigma_range = tuple(hyper.get("blur", {}).get("sigma_range",
+                                                      (0.1, 2.0)))
+        params.append({"mask": bmask,
+                       "inner": jax_blur_params(bkey, sigma_range)})
+    if n_stages > 5:
+        cmask, ckey = jax_random_apply_mask(k[5], n, 0.5)
+        params.append({"mask": cmask,
+                       "inner": jax_cutout_params(ckey, n, h, w)})
+    return params
