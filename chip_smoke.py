@@ -12,7 +12,11 @@ result line:
 3. hold the blur kernel to its plain PyTorch version at every (shape, pad)
    that a train step of either StyleGAN2 path gives it, forward and
    adjoint (the 32x32 recipe at batch 64, the 512x512 recipe at batch 16),
-   each with its launches per step on each path, in float32 (TF32 off) and
+   each with its launches per step on each path, and that the 32x32 run's
+   evaluation gives it (the probe's D forward at batch 256 and its shorter
+   last test batch, cDDLS's G and D forward and adjoint at batch 100 and
+   its final sample, sampling's G forward at batch 500), each with its
+   launches per call, in float32 (TF32 off) and
    bfloat16, forward, backward and double backward (the kernel through its
    autograd ``Function``, the plain version as three forward calls); then
    time the kernel (L2 warm and cold, float32 and bfloat16), the plain
@@ -54,7 +58,23 @@ result line:
    torch.profiler breakdown of 3 plain steps (as phase 6's, with the blur's
    ms beside phase 3's launch-weighted sum); then one step of the recipe's
    trainer at batch 4 with R1 on the card against the CPU (same weights,
-   images and draws, TF32 off): losses and both phases' gradients.
+   images and draws, TF32 off): losses and both phases' gradients;
+8. the evaluation path, its runs written under a temporary directory: the
+   conditional flagship (``train_gan ... --conditional``, batch 512) on
+   labelled synthetic data for 6 steps with ``--evaluate_every 3
+   --save_every 6`` (ms/step, img/s and peak memory beside phase 6's; each
+   checkpoint's size and seconds), its state restored from ``step_6``
+   equal to the file bitwise on the card, and ``--resume`` to step 8 (the
+   first resumed step must be 7); on that run the linear probe (2 epochs
+   at batch 256: seconds an epoch, train and test accuracy), 1,000 samples
+   and cDDLS (20 steps, 5,000
+   samples at batch 500: ms a Langevin step, samples/s), no blur launch
+   allowed; then phase 4's recipe for 6 steps with a checkpoint, and on it
+   the probe (1 epoch), 1,000 samples from the EMA G and cDDLS (10 steps at
+   batch 100), the blur launching exactly as phase 3 counts per call; then
+   card against CPU (TF32 off): one conditional flagship step at batch 64
+   (losses, parameters, ``u``, batch-norm statistics), and on each run's
+   weights one probe step and 3 Langevin steps.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -71,6 +91,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,6 +129,13 @@ GAN_BASELINE = ["configs/gan/cifar10/c10_b64.toml", "sndcgan", "--mode", "std"]
 SNRESNET = ["configs/gan/cifar10/c10_b512.toml", "snresnet18", "--mode",
             "contrad", "--aug", "simclr", "--use_warmup"]
 GAN_LOSSES = ("D_loss", "D_penalty", "D_real", "D_gen", "G_loss")
+# phase 8: the evaluation path, on labelled synthetic data (10 classes)
+EVAL_DATA = "synthetic_32_10000"
+EVAL_TEST = 2000  # its test split: max(512, min(10000 // 5, 10000)) images
+PROBE_BATCH = 256  # test_lineval's default batch
+CDDLS_BATCH = 500  # test_gan_sample_cddls's default batch (SNDCGAN run)
+CDDLS_BATCH_SG2 = 100  # the StyleGAN2 run's chains
+SAMPLE_BATCH = 500  # test_gan_sample's default batch
 
 
 T0 = time.perf_counter()
@@ -174,6 +202,47 @@ def blur_cases():
                                                    w + sum(pad) - 3, c),
                           pad=(3 - pad[0], 3 - pad[1]), up=up,
                           per_step=per_step, adjoint=True))
+    return cases
+
+
+def eval_blur_cases(probe_batch: int = PROBE_BATCH,
+                    probe_tail: int = EVAL_TEST % PROBE_BATCH,
+                    cddls_batch: int = CDDLS_BATCH_SG2,
+                    sample_batch: int = SAMPLE_BATCH):
+    """The blur's (shape, pad, upsample factor) cases on the evaluation
+    path of a 32x32 StyleGAN2 run, with its launches per call
+    (``per_step``): ``lineval_32``, a probe step or a full test batch (D's
+    six downsample blurs forward, no gradient); ``lineval_32_tail``, the
+    test set's last, shorter batch; ``cddls_32``, a Langevin step (G's three
+    upsample blurs and D's six, forward and adjoint, the adjoint rows
+    derived as in :func:`blur_cases`); ``cddls_32_final``, a chain's final
+    sample (G forward); ``sample_32``, a batch of ``test_gan_sample`` (G
+    forward). 6, 6, 18, 3 and 3 launches a call.
+    ``tests/test_torch_port_blur.py`` holds them to what the port's models
+    launch."""
+    ch = {8: 512, 16: 256, 32: 128}
+
+    def g(who, n, per_call):
+        return [(who, (n, 2 * s + 1, 2 * s + 1, ch[2 * s]), (1, 1), 2,
+                 per_call) for s in (4, 8, 16)]
+
+    def d(who, n, per_call):
+        return [(who, (n, s, s, ch[s]), pad, 1, per_call)
+                for s in (32, 16, 8) for pad in ((2, 2), (1, 1))]
+
+    fwd = d("D probe", probe_batch, {"lineval_32": 1})
+    if probe_tail:
+        fwd += d("D tail", probe_tail, {"lineval_32_tail": 1})
+    chain = (g("G cddls", cddls_batch, {"cddls_32": 1, "cddls_32_final": 1})
+             + d("D cddls", cddls_batch, {"cddls_32": 1}))
+    fwd += chain + g("G sample", sample_batch, {"sample_32": 1})
+    cases = [dict(who=who, shape=shape, pad=pad, up=up, per_step=per_call,
+                  adjoint=False) for who, shape, pad, up, per_call in fwd]
+    for who, (n, h, w, c), pad, up, _ in chain:
+        cases.append(dict(who=who + " adj", shape=(n, h + sum(pad) - 3,
+                                                   w + sum(pad) - 3, c),
+                          pad=(3 - pad[0], 3 - pad[1]), up=up,
+                          per_step={"cddls_32": 1}, adjoint=True))
     return cases
 
 
@@ -413,24 +482,36 @@ def blur_host_us(blur, calls: int = 200) -> dict:
 
 # ------------------------------------------------------------ main path
 
+LOG_ROOT = None  # the runs' logdir root: a temporary directory (main)
+
+
+def cli_argv(recipe, dataset: str, steps: int, batch=None):
+    """The train CLI's arguments for ``recipe`` on ``dataset`` at ``batch``
+    (the config's where None) up to step ``steps``, and the batch."""
+    from contrad_tpu_torch.config import default_config_files, load_config
+
+    if batch is None:
+        batch = load_config(default_config_files(recipe[0])).options.batch_size
+    return recipe + ["--print_every", "1", "--seed", "0", "--logdir_root",
+                     LOG_ROOT, "--override", f"options.dataset={dataset}",
+                     f"options.batch_size={batch}",
+                     f"options.max_steps={steps}"], batch
+
+
 def run_cli(main, recipe, dataset: str, steps: int, batch=None):
     """``steps`` steps of one of the port's training CLIs (its ``main``)
     with ``recipe`` on ``dataset`` at ``batch`` (the config's where None),
     with the blur's launch counts set to 0 just before and read just after;
-    every metric it prints must be finite. Returns its history, the blur's
-    launches (all, and on the scalar path), the peak device memory and the
-    ms per step (the mean after the first) and img/s."""
+    every metric it prints must be finite. Returns its history (with the
+    run's logdir and the checkpoints it wrote), the blur's launches (all,
+    and on the scalar path), the peak device memory and the ms per step
+    (the mean after the first; the steps' own, checkpoint writes excluded)
+    and img/s."""
     import torch
 
-    from contrad_tpu_torch.config import default_config_files, load_config
     from contrad_tpu_torch.ops import blur
 
-    if batch is None:
-        batch = load_config(default_config_files(recipe[0])).options.batch_size
-    argv = recipe + ["--print_every", "1", "--seed", "0", "--override",
-                     f"options.dataset={dataset}",
-                     f"options.batch_size={batch}",
-                     f"options.max_steps={steps}"]
+    argv, batch = cli_argv(recipe, dataset, steps, batch)
     torch.cuda.reset_peak_memory_stats()
     blur.blur2d.launches = blur.blur2d.scalar_launches = 0
     history = main(argv)
@@ -440,9 +521,10 @@ def run_cli(main, recipe, dataset: str, steps: int, batch=None):
         for k, v in rec.items():
             if not math.isfinite(v):
                 raise AssertionError(f"step {rec['step']}: {k} = {v}")
-    ms_step = 1e3 * sum(r["seconds_per_step"] for r in history[1:]) / (
-        len(history) - 1)
-    return dict(history=history, batch=batch, launches=launches,
+    timed = history[1:] or history
+    ms_step = 1e3 * sum(r["seconds_per_step"] for r in timed) / len(timed)
+    return dict(history=history, logdir=history.logdir, saves=history.saves,
+                batch=batch, launches=launches,
                 scalar_launches=scalar, launches_per_step=launches / steps,
                 ms_per_step=ms_step, img_per_s=batch / (ms_step * 1e-3),
                 peak_bytes=peak)
@@ -625,10 +707,11 @@ def _to(obj, device):
     return obj
 
 
-def gan_card_vs_cpu(batch: int = 64) -> float:
+def gan_card_vs_cpu(batch: int = 64, n_classes: int = 1) -> float:
     """One flagship GANTrainer step (sndcgan at full width, contrad, simclr,
-    nonsat, Adam with warmup) on the card and on the CPU, from the same
-    weights, images and draws, float32 with TF32 off: the losses and every
+    nonsat, Adam with warmup; with ``n_classes > 1`` a conditional D and
+    labelled images) on the card and on the CPU, from the same weights,
+    images, labels and draws, float32 with TF32 off: the losses and every
     parameter and buffer after the step (``u``, batch-norm statistics)."""
     import torch
 
@@ -636,11 +719,13 @@ def gan_card_vs_cpu(batch: int = 64) -> float:
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import GANTrainer, ScheduledAdam
 
-    images = torch.rand(batch, 32, 32, 3,
-                        generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(3)
+    images = torch.rand(batch, 32, 32, 3, generator=gen)
+    labels = torch.randint(0, n_classes, (batch,), generator=gen)
     draws, out = None, {}
     for device in ("cpu", "cuda"):
-        G, D = get_architecture("sndcgan", (32, 32, 3), device=device, seed=1)
+        G, D = get_architecture("sndcgan", (32, 32, 3), device=device, seed=1,
+                                n_classes=n_classes)
 
         def adam(m):
             return ScheduledAdam(m.parameters(), 2e-4, (0.5, 0.999),
@@ -653,7 +738,8 @@ def gan_card_vs_cpu(batch: int = 64) -> float:
         if draws is None:
             draws = trainer.draw_step(images.shape)
         metrics = trainer.train_step(images.to(device),
-                                     draws=_to(draws, device))
+                                     draws=_to(draws, device),
+                                     labels=labels.to(device))
         state = {f"G.{k}": v for k, v in G.state_dict().items()}
         state.update({f"D.{k}": v for k, v in D.state_dict().items()})
         out[device] = ({k: v.reshape(1) for k, v in metrics.items()}, state)
@@ -753,6 +839,312 @@ def sg2_512_card_vs_cpu(batch: int = 4) -> dict:
                 cpu_s=out["cpu"][2], card_s=out["cuda"][2])
 
 
+# ------------------------------------------------------- the evaluation path
+
+def flat_tensors(tree, prefix: str = ""):
+    """Every tensor of a checkpoint's nested dicts and lists, by path."""
+    import torch
+
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+    out = {}
+    for k, v in items:
+        out.update(flat_tensors(v, f"{prefix}{k}."))
+    return out
+
+
+def restored_equals_saved(cli, argv, logdir: str, name: str) -> int:
+    """Build the CLI's trainer for ``argv`` (a ``--resume`` command line),
+    restore it as the CLI does and hold every tensor of it (G, D, ``u``,
+    batch-norm statistics, Adam's moments, the random streams) to the
+    checkpoint ``name`` bitwise, on the card; returns the first step the
+    resumed run takes."""
+    import torch
+
+    from contrad_tpu_torch.utils.checkpoint import restore_checkpoint
+    from contrad_tpu_torch.utils.logger import Logger
+    from contrad_tpu_torch.utils.run import restore, run_state
+
+    P = cli.parse_args(argv)
+    _, loader, trainer = cli.build(P)
+    first = restore(P, trainer, loader, Logger(None, resume=logdir))
+    saved = restore_checkpoint(logdir, name, "cuda")
+    got = run_state(trainer, loader, first - 1, saved["meta"])
+    want_t, got_t = flat_tensors(saved), flat_tensors(got)
+    if want_t.keys() != got_t.keys():
+        raise AssertionError("restored state holds other tensors than the "
+                             "checkpoint")
+    for k, v in want_t.items():
+        if not (got_t[k].dtype == v.dtype and torch.equal(got_t[k].cpu(),
+                                                         v.cpu())):
+            raise AssertionError(f"restored {k} differs from the saved one")
+    if got["data"] != saved["data"] or saved["step"] != first - 1:
+        raise AssertionError("restored data position or step differs")
+    log(f"  restored state equals ckpt/{name}.pt bitwise: {len(want_t)} "
+        f"tensors; data position {saved['data']}; resumes at step {first}")
+    return first
+
+
+def eval_cli(main, argv, want_launches: int, what: str):
+    """One evaluation CLI (its ``main``) with the blur's launch counts set
+    to 0 just before and read just after; they must be ``want_launches``,
+    none on the scalar path. Returns its result and its seconds."""
+    import torch
+
+    from contrad_tpu_torch.ops import blur
+
+    blur.blur2d.launches = blur.blur2d.scalar_launches = 0
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    expect_launches(dict(launches=blur.blur2d.launches,
+                         scalar_launches=blur.blur2d.scalar_launches),
+                    want_launches, what)
+    return out, seconds, blur.blur2d.launches
+
+
+def count_pngs(directory: str) -> int:
+    return sum(f.endswith(".png") for _, _, files in os.walk(directory)
+               for f in files)
+
+
+def feature_scale(arch: str, logdir: str, n: int = 256):
+    """Mean norm of the penultimate features that the probe reads (eval
+    mode, ``n`` test images) from the run's D and from the same D as
+    initialised (seed 0), on the card: spectral norm's ``u`` converges in a
+    few steps and scales a SNDCGAN D's features."""
+    import torch
+
+    from contrad_tpu_torch.data import get_dataset
+    from contrad_tpu_torch.models import get_architecture
+    from contrad_tpu_torch.test_lineval import features
+    from contrad_tpu_torch.utils.run_loading import load_run
+
+    _, _, D, _, image_size = load_run(logdir, arch)
+    _, D0 = get_architecture(arch, image_size, device="cuda", seed=0,
+                             n_classes=D.n_classes)
+    x = torch.from_numpy(get_dataset(EVAL_DATA)[1].images[:n]).cuda()
+    x = x.float() / 255.0
+    return tuple(float(features(d, x).norm(dim=1).mean()) for d in (D, D0))
+
+
+def evaluate_run(arch: str, logdir: str, per_step, probe_epochs: int,
+                 cddls_steps: int, cddls_samples: int, cddls_batch: int,
+                 use_ema: bool):
+    """The three evaluation CLIs on a trained run: the linear probe
+    (``probe_epochs`` epochs at batch 256), 1,000 samples (from the EMA G
+    with ``use_ema``) and cDDLS (``cddls_steps`` steps, ``cddls_samples``
+    samples at ``cddls_batch``, the probe's head, ``latest``), each with the
+    blur's launches as ``per_step`` counts them (all zero on SNDCGAN); the
+    probe's losses must be finite (its accuracies are reported: on a D
+    trained for a few steps they need not beat chance), and every sample
+    must be written."""
+    from contrad_tpu_torch import (
+        test_gan_sample, test_gan_sample_cddls, test_lineval)
+
+    sg2 = arch.startswith("stylegan2")
+    n_train = int(EVAL_DATA.split("_")[2])
+    probe_calls = n_train // PROBE_BATCH + EVAL_TEST // PROBE_BATCH
+    want = (probe_epochs * (probe_calls * per_step["lineval_32"]
+                            + bool(EVAL_TEST % PROBE_BATCH)
+                            * per_step["lineval_32_tail"]) if sg2 else 0)
+    probe, probe_s, probe_n = eval_cli(
+        test_lineval.main, [logdir, arch, "--epochs", str(probe_epochs),
+                            "--batch_size", str(PROBE_BATCH)], want,
+        f"{arch}'s linear probe")
+    last = probe["epochs"][-1]
+    scale = feature_scale(arch, logdir)
+    log(f"  {arch}: mean norm of D's penultimate features {scale[0]:.4f} "
+        f"after training, {scale[1]:.4f} as initialised")
+    for rec in probe["epochs"]:
+        log(f"  probe epoch {rec['epoch']}: {rec['seconds']:.2f} s, train "
+            f"acc {rec['train_acc']:.2f} %, test acc {rec['test_acc']:.2f} %"
+            f" (loss {rec['train_loss']:.4f} / {rec['test_loss']:.4f})")
+    if not all(math.isfinite(last[k]) for k in ("train_loss", "test_loss")):
+        raise AssertionError(f"{arch}'s probe diverged: {last}")
+
+    n_samples = 1000
+    want = per_step["sample_32"] * -(-n_samples // SAMPLE_BATCH) if sg2 else 0
+    subdir, sample_s, sample_n = eval_cli(
+        test_gan_sample.main, [logdir, arch, "--n_samples", str(n_samples),
+                               "--batch_size", str(SAMPLE_BATCH)]
+        + (["--use_ema"] if use_ema else []), want, f"{arch}'s sampling")
+    if count_pngs(subdir) != n_samples:
+        raise AssertionError(f"{subdir} holds {count_pngs(subdir)} PNGs")
+
+    chains = 10 * -(-cddls_samples // 10 // cddls_batch)
+    want = (chains * (cddls_steps * per_step["cddls_32"]
+                      + per_step["cddls_32_final"]) if sg2 else 0)
+    cddls, cddls_s, cddls_n = eval_cli(
+        test_gan_sample_cddls.main,
+        [logdir, probe["npz"], arch, "--ckpt", "latest", "--n_steps",
+         str(cddls_steps), "--n_samples", str(cddls_samples), "--batch_size",
+         str(cddls_batch)], want, f"{arch}'s cDDLS")
+    if cddls["samples"] != cddls_samples or count_pngs(
+            cddls["subdir"]) != cddls_samples:
+        raise AssertionError(f"cDDLS wrote {cddls['samples']} samples")
+    ms_step = 1e3 * cddls["chain_seconds"] / (cddls["chains"] * cddls_steps)
+    log(f"  {arch}: probe {probe_epochs} epoch(s) in {probe_s:.2f} s (blur "
+        f"launches {probe_n}); {n_samples} samples in {sample_s:.2f} s "
+        f"(blur {sample_n}); cDDLS {cddls['chains']} chains x {cddls_steps} "
+        f"steps at batch {cddls_batch}: {ms_step:.3f} ms a Langevin step "
+        f"(the final sample included), {cddls_samples / cddls['chain_seconds']:.1f}"
+        f" samples/s in the chains, {cddls_s:.2f} s with the PNGs (blur "
+        f"{cddls_n})")
+    return dict(probe=probe, probe_s=probe_s, probe_launches=probe_n,
+                feature_norm=scale[0], feature_norm_init=scale[1],
+                sample_s=sample_s, sample_launches=sample_n,
+                cddls=cddls, cddls_s=cddls_s, cddls_launches=cddls_n,
+                cddls_ms_per_step=ms_step, cddls_batch=cddls_batch,
+                cddls_samples_per_s=cddls_samples / cddls["chain_seconds"])
+
+
+def _check_close(what: str, got, want) -> float:
+    import torch
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or values")
+    err = float((got.cpu() - want).abs().max())
+    limit = MODEL_TOL[0] + MODEL_TOL[1] * float(want.abs().max())
+    log(f"  {what:32s} max|card - cpu| {err:.3e} (tol {limit:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"{what}: card and CPU disagree: {err} > {limit}")
+    return err
+
+
+def eval_card_vs_cpu(arch: str, logdir: str, batch: int = 8) -> float:
+    """On a trained run's weights, on the card and on the CPU (TF32 off):
+    one probe step (SNDCGAN runs) and 3 Langevin steps, from the same
+    images, labels, augmentation, latents and draws; the probe's loss,
+    logits and updated head, and the chain's energy gradients' end state
+    ``(z, z2)``."""
+    import torch
+
+    from contrad_tpu_torch.augment import AugRng
+    from contrad_tpu_torch.data import get_dataset
+    from contrad_tpu_torch.test_gan_sample_cddls import (
+        draw_noise, langevin_step)
+    from contrad_tpu_torch.test_lineval import lin_augment, probe_step
+    from contrad_tpu_torch.utils.run_loading import load_run
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(5)
+    train, _, image_size = get_dataset(EVAL_DATA)
+    images = torch.from_numpy(train.images[:64])
+    labels = torch.from_numpy(train.labels[:64])
+    aug = lin_augment()
+    aug_params = aug.sample(images.shape, AugRng.from_seed(0, cpu))
+    out, start, worst = {}, None, 0.0
+    for device in ("cpu", "cuda"):
+        _, G, D, _, _ = load_run(logdir, arch, device=device)
+        if start is None:  # the same probe head, latents and draws for both
+            z0 = G.sample_latent(batch, gen)
+            z2_0 = torch.randn((batch,) + tuple(image_size), generator=gen)
+            draws = [(draw_noise(G, batch, gen, cpu),
+                      torch.randn(z0.shape, generator=gen),
+                      torch.randn(z2_0.shape, generator=gen))
+                     for _ in range(3)]
+            start = ({"w": torch.randn(D.d_penul, 10, generator=gen) * 0.01,
+                      "b": torch.zeros(10)}, (z0, z2_0, draws))
+        probe = {k: v.clone().to(device) for k, v in start[0].items()}
+        loss, logits = probe_step(D, probe, images.to(device),
+                                  labels.to(device), aug,
+                                  _to(aug_params, device), 0.1)
+        z, z2, draws = _to(start[1], device)
+        w, b = probe["w"], probe["b"]
+        for noise, n_z, n_z2 in draws:
+            z, z2 = langevin_step(G, D, w, b, z, z2, 3, 0.01, 0.1, 1.0,
+                                  noise, n_z, n_z2)
+        out[device] = dict(loss=loss.reshape(1), logits=logits,
+                           w=probe["w"], b=probe["b"], z=z, z2=z2)
+        del G, D
+    for k, want in out["cpu"].items():
+        worst = max(worst, _check_close(f"{arch} {k}", out["cuda"][k], want))
+    return worst
+
+
+FLAGSHIP_COND = FLAGSHIP + ["--conditional", "--evaluate_every", "3",
+                            "--save_every", "6"]
+
+
+def evaluation_phase(train_gan, train_stylegan2, per_step, flagship):
+    """Phase 8: the conditional flagship with checkpoints and resume, the
+    evaluation CLIs on it and on a 32x32 StyleGAN2 run, and card against
+    CPU (TF32 off at the end); returns its numbers."""
+    import torch
+
+    t8 = time.perf_counter()
+    phase("[8] the evaluation path: conditional flagship, checkpoints and "
+          "resume, probe, sampling and cDDLS")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    cond = run_cli(train_gan.main, FLAGSHIP_COND, EVAL_DATA, 6)
+    log_run("conditional flagship contrad, batch", cond)
+    log(f"  unconditional (phase 6): {flagship['ms_per_step']:.2f} ms/step, "
+        f"{flagship['img_per_s']:.1f} img/s, peak "
+        f"{flagship['peak_bytes'] / 2**30:.3f} GiB")
+    expect_launches(cond, 0, "the conditional flagship")
+    for s in cond["saves"]:
+        log(f"  step {s['step']}: ckpt/{s['name']}.pt {s['bytes'] / 2**20:.2f}"
+            f" MiB written in {s['seconds']:.3f} s")
+    if [s["name"] for s in cond["saves"]] != ["latest", "latest", "step_6"]:
+        raise AssertionError(f"checkpoints written: {cond['saves']}")
+    logdir = cond["logdir"]
+    resume_argv, _ = cli_argv(FLAGSHIP_COND + ["--resume", logdir],
+                              EVAL_DATA, 8)
+    if restored_equals_saved(train_gan, resume_argv, logdir, "step_6") != 7:
+        raise AssertionError("the resumed run would not start at step 7")
+    resumed = run_cli(train_gan.main, FLAGSHIP_COND + ["--resume", logdir],
+                      EVAL_DATA, 8)
+    steps = [r["step"] for r in resumed["history"]]
+    if steps != [7, 8] or resumed["logdir"] != logdir:
+        raise AssertionError(f"the resumed run took steps {steps}")
+    expect_launches(resumed, 0, "the resumed flagship")
+    log(f"  resumed from ckpt/step_6.pt: steps {steps}")
+
+    sndcgan = evaluate_run("sndcgan", logdir, per_step, probe_epochs=2,
+                           cddls_steps=20, cddls_samples=5000,
+                           cddls_batch=CDDLS_BATCH, use_ema=False)
+    phase(f"  the 32x32 StyleGAN2 run: {STEPS} steps, then its evaluation")
+    sg2_run = run_cli(train_stylegan2.main,
+                      RECIPE + ["--evaluate_every", str(STEPS)], EVAL_DATA,
+                      STEPS, BATCH)
+    expect_launches(sg2_run, STEPS * per_step["stylegan2_32"],
+                    "the 32x32 path")
+    sg2 = evaluate_run("stylegan2", sg2_run["logdir"], per_step,
+                       probe_epochs=1, cddls_steps=10, cddls_samples=1000,
+                       cddls_batch=CDDLS_BATCH_SG2, use_ema=True)
+    torch.cuda.empty_cache()
+
+    phase("  card against CPU: a conditional flagship step (batch 64), a "
+          "probe step and 3 Langevin steps")
+    torch.backends.cudnn.allow_tf32 = False
+    cond_err = gan_card_vs_cpu(n_classes=10)
+    eval_err = {arch: eval_card_vs_cpu(arch, d) for arch, d in (
+        ("sndcgan", logdir), ("stylegan2", sg2_run["logdir"]))}
+    seconds = time.perf_counter() - t8
+    log(f"  phase 8: {seconds:.1f} s")
+    launches = {
+        "sndcgan conditional (phase 8, 6 + 2 steps)":
+            cond["launches"] + resumed["launches"],
+        "sndcgan probe, sampling, cDDLS (phase 8)": sum(
+            sndcgan[k] for k in ("probe_launches", "sample_launches",
+                                 "cddls_launches")),
+        "stylegan2_32 probe (phase 8, 1 epoch)": sg2["probe_launches"],
+        "stylegan2_32 sampling (phase 8, 1000 samples)":
+            sg2["sample_launches"],
+        "stylegan2_32 cDDLS (phase 8, 10 chains x 10 steps)":
+            sg2["cddls_launches"]}
+    return dict(conditional=cond, resumed=resumed, sndcgan=sndcgan,
+                stylegan2_run=sg2_run, stylegan2=sg2,
+                card_vs_cpu=dict(conditional_step=cond_err, **eval_err),
+                seconds=seconds, launches=launches)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -787,11 +1179,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = blur_cases()
-    paths = ("stylegan2_32", "stylegan2_512", "stylegan2_512_r1")
+    cases = blur_cases() + eval_blur_cases()
+    paths = ("stylegan2_32", "stylegan2_512", "stylegan2_512_r1",
+             "lineval_32", "lineval_32_tail", "cddls_32", "cddls_32_final",
+             "sample_32")
     per_step = {path: per_step_launches(cases, path) for path in paths}
     phase(f"[3] blur kernel vs plain version at {len(cases)} cases; launches "
-        f"per step: {per_step}")
+          f"per step (train paths) or per call (evaluation paths): {per_step}")
     max_err = check_blur(blur, cases)
     phase("  timing")
     copy_bps = copy_bandwidth()
@@ -810,6 +1204,9 @@ def main() -> int:
     from contrad_tpu_torch import (
         train_gan, train_stylegan2, train_stylegan2_contraD)
 
+    global LOG_ROOT
+    logs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
+    LOG_ROOT = logs.name
     share_datasets()
     phase(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
           f"ContraD recipe, batch {BATCH}")
@@ -877,6 +1274,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase("  one 512x512 step (batch 4, R1) on the card against the CPU")
     check512 = sg2_512_card_vs_cpu()
+    torch.cuda.empty_cache()
+
+    phase8 = evaluation_phase(train_gan, train_stylegan2, per_step, flagship)
+    logs.cleanup()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
               key=lambda r: r["bytes"])
@@ -892,8 +1293,10 @@ def main() -> int:
             "stylegan2_32 (phase 4, 6 steps)": run["launches"],
             "sndcgan (phase 6)": flagship["launches"],
             "snresnet18 (phase 6)": snresnet["launches"],
-            f"stylegan2_512 (phase 7, {STEPS_512} steps)": run512["launches"]},
-        "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0)}]
+            f"stylegan2_512 (phase 7, {STEPS_512} steps)": run512["launches"],
+            **phase8["launches"]},
+        "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
+                                  sndcgan_conditional=0)}]
     total_s = time.perf_counter() - T0
     log(f"whole run: {total_s:.1f} s")
     if args.out is not None:
@@ -910,7 +1313,8 @@ def main() -> int:
                          card_vs_cpu_max_abs_err=gan_err,
                          tf32="convs on, matmuls off (card vs CPU: off)"),
             stylegan2_512=dict(train=run512, profile=prof512,
-                               card_vs_cpu=check512)),
+                               card_vs_cpu=check512),
+            evaluation=phase8),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,6 +19,8 @@ trees, which share the parameters' structure. Rules:
     kernel and flips nothing at run time;
   * ``EqualDense.weight`` and dense ``kernel``s: (in, out) -> (out, in),
     named ``weight``;
+  * ``SNEmbed``'s (classes, features) ``embedding`` (a conditional D's
+    ``linear/linear_y``) -> ``weight``, as it is;
   * batch norm: ``scale`` -> ``weight``; ``batch_stats`` ``mean`` / ``var``
     -> ``running_mean`` / ``running_var``; spectral norm's ``u`` keeps its
     name (a buffer of each layer);
@@ -38,7 +40,8 @@ import torch
 
 _LISTS = re.compile(r"^(style|layers|to_rgbs)_(\d+)$")
 _CONV_TRANSPOSE = re.compile(r"^up\d+$")
-_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+_RENAME = {"scale": "weight", "embedding": "weight", "mean": "running_mean",
+           "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:

@@ -1,4 +1,5 @@
-"""Layered configuration (copy of ``contrad_tpu/config.py``).
+"""Layered configuration (copy of ``contrad_tpu/config.py``, ``dump_toml``
+included).
 
 Configs are parsed as ``[defaults/gan, defaults/augment, experiment]`` with
 later files overriding earlier ones, plus dotted-path CLI overrides
@@ -78,6 +79,41 @@ def load_config(files: Iterable[str | Path],
         key, _, val = ov.partition("=")
         apply_override(merged, key.strip(), _parse_value(val.strip()))
     return Config.wrap(merged)
+
+
+def _toml_value(v: Any) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    if isinstance(v, str):
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    raise TypeError(f"cannot serialize {type(v)!r} to TOML")
+
+
+def dump_toml(cfg: dict) -> str:
+    """Serialize a (possibly nested) config dict to TOML text: the EFFECTIVE
+    config (defaults + experiment + CLI ``--override``s) that a run keeps
+    in its logdir, so that a resume or an evaluation CLI rebuilds the run
+    that was trained, not the one the experiment file names."""
+
+    def section(prefix: str, d: dict, out: list) -> None:
+        scalars = {k: v for k, v in d.items() if not isinstance(v, dict)}
+        tables = {k: v for k, v in d.items() if isinstance(v, dict)}
+        if prefix and (scalars or not tables):
+            out.append(f"[{prefix}]")
+        for k, v in scalars.items():
+            out.append(f"{k} = {_toml_value(v)}")
+        if scalars:
+            out.append("")
+        for k, v in tables.items():
+            section(f"{prefix}.{k}" if prefix else k, v, out)
+
+    out: list = ["# effective config (defaults + experiment + CLI overrides)"]
+    section("", cfg.to_dict() if isinstance(cfg, Config) else dict(cfg), out)
+    return "\n".join(out) + "\n"
 
 
 def default_config_files(experiment: str | Path,

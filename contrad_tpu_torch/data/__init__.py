@@ -1,13 +1,14 @@
 """Dataset registry (the port of ``contrad_tpu/data/__init__.py`` for
-unconditional training: ``cifar10[_hflip]``, ``cifar100[_hflip]``,
-``celeba128``, ``afhq_{cat,dog,wild}`` and ``synthetic*``).
+``cifar10[_hflip|_lin]``, ``cifar100[_hflip|_lin]``, ``celeba128``,
+``afhq_{cat,dog,wild}`` and ``synthetic*``).
 
 ``get_dataset(name)`` -> ``(train, test, image_size)`` as uint8 NHWC
 :class:`ArrayDataset`s; ``get_image_size(name)`` gives the image shape
 without loading anything. ``$DATA_DIR`` points at the data root. A
 dataset's ``train_aug`` names the augmentation the reference baked into its
-transforms (``hflip`` for the ``_hflip`` variants and AFHQ); the trainers
-apply it on the device.
+transforms (``hflip`` for the ``_hflip`` variants and AFHQ, ``lin`` for the
+linear probe's ``_lin`` variants: RRC(0.2, 1) + flip); the trainers and the
+probe apply it on the device.
 """
 
 from __future__ import annotations
@@ -25,11 +26,13 @@ DATA_PATH = os.environ.get("DATA_DIR", "data/")
 Entry = Tuple[ArrayDataset, Optional[ArrayDataset], Tuple[int, int, int]]
 
 _AFHQ = ("afhq_cat", "afhq_dog", "afhq_wild")
+_CIFAR = ("cifar10", "cifar10_hflip", "cifar10_lin", "cifar100",
+          "cifar100_hflip", "cifar100_lin")
 
 
 def get_image_size(dataset: str) -> Tuple[int, int, int]:
     """Image shape of a dataset, without loading it."""
-    if dataset in ("cifar10", "cifar10_hflip", "cifar100", "cifar100_hflip"):
+    if dataset in _CIFAR:
         return (32, 32, 3)
     if dataset == "celeba128":
         return (128, 128, 3)
@@ -45,11 +48,13 @@ def get_image_size(dataset: str) -> Tuple[int, int, int]:
 def get_dataset(dataset: str, data_path: Optional[str] = None) -> Entry:
     root = data_path or DATA_PATH
 
-    if dataset in ("cifar10", "cifar10_hflip", "cifar100", "cifar100_hflip"):
+    if dataset in _CIFAR:
         loader = load_cifar100 if dataset.startswith("cifar100") else load_cifar10
         train, test = loader(root)
         if dataset.endswith("_hflip"):
             train.train_aug = "hflip"  # DiffAug recipe (datasets.py:49-69)
+        elif dataset.endswith("_lin"):
+            train.train_aug = "lin"  # linear eval's RRC + flip (datasets.py:23-47)
         return train, test, (32, 32, 3)
 
     if dataset == "celeba128":

@@ -5,7 +5,11 @@ bookkeeping and ``DeviceBatchIterator``).
 The whole uint8 train set is copied to the device once; each step gathers
 its batch there from an index vector, so no pixels cross the host link
 after set-up. Epoch semantics match the JAX package: a seeded reshuffle per
-epoch (``numpy.random.default_rng((seed, epoch))``) and drop-last.
+epoch (``numpy.random.default_rng((seed, epoch))``) and drop-last. With
+``with_labels`` the stream yields ``(images, labels)``, the int64 labels
+device-resident beside the images. Its position (epoch and row) is a
+``state_dict``, so a resumed run reads the batches an uninterrupted run
+would have read.
 """
 
 from __future__ import annotations
@@ -43,10 +47,12 @@ class ArrayDataset:
 
 
 class DeviceBatchIterator:
-    """Infinite stream of shuffled uint8 NHWC batches gathered on the device."""
+    """Infinite stream of shuffled uint8 NHWC batches gathered on the device
+    (with ``with_labels``, ``(images, labels)`` pairs)."""
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, seed: int = 0,
-                 start_epoch: int = 0, device: str | torch.device = "cuda"):
+                 start_epoch: int = 0, device: str | torch.device = "cuda",
+                 with_labels: bool = False):
         if batch_size > len(dataset):
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset size {len(dataset)}")
@@ -59,6 +65,19 @@ class DeviceBatchIterator:
         self._pos = 0
         self.images = torch.from_numpy(np.ascontiguousarray(dataset.images)).to(
             self.device)
+        self.labels = (torch.from_numpy(np.asarray(dataset.labels, np.int64)).to(
+            self.device) if with_labels else None)
+
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "pos": self._pos,
+                "started": self._order is not None}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Continue from ``state``: the epoch's permutation and the next
+        batch's first row."""
+        self.epoch, self._pos = int(state["epoch"]), int(state["pos"])
+        self._order = (np.random.default_rng((self.seed, self.epoch))
+                       .permutation(self.n) if state["started"] else None)
 
     def next_indices(self) -> np.ndarray:
         """Advance the stream by one batch and return its dataset rows."""
@@ -75,7 +94,10 @@ class DeviceBatchIterator:
     def __iter__(self):
         return self
 
-    def __next__(self) -> torch.Tensor:
+    def __next__(self):
         idx = torch.from_numpy(self.next_indices()).to(self.device,
                                                        non_blocking=True)
-        return self.images.index_select(0, idx)
+        images = self.images.index_select(0, idx)
+        if self.labels is None:
+            return images
+        return images, self.labels.index_select(0, idx)

@@ -14,7 +14,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,10 +29,11 @@ ARCHITECTURES = ("sndcgan", "snresnet18", "stylegan2", "stylegan2_512",
 
 def get_architecture(architecture: str, image_size: Tuple[int, int, int],
                      device: str | torch.device = "cuda",
-                     seed: Optional[int] = None
+                     seed: Optional[int] = None, n_classes: int = 1
                      ) -> Tuple[nn.Module, Discriminator]:
     """Build (G, D) in float32 on ``device``; ``seed`` makes the random
-    initialisation reproducible."""
+    initialisation reproducible. ``n_classes > 1`` adds the projection
+    discrimination head (``SNEmbed``; reference base.py:107-130)."""
     from contrad_tpu_torch.models.sndcgan import DSndcgan, GSndcgan
     from contrad_tpu_torch.models.snresnet import DSnresnet18
     from contrad_tpu_torch.models.stylegan2 import DStylegan2, GStylegan2
@@ -49,26 +50,43 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
             torch.manual_seed(seed)
         if architecture == "sndcgan":
             generator = GSndcgan(image_size)
-            discriminator = DSndcgan(image_size, d_hidden=512)
+            discriminator = DSndcgan(image_size, d_hidden=512,
+                                     n_classes=n_classes)
         elif architecture == "snresnet18":
             generator = GSndcgan(image_size)
-            discriminator = DSnresnet18(d_hidden=1024)
+            discriminator = DSnresnet18(d_hidden=1024, n_classes=n_classes)
         elif architecture == "stylegan2":
             generator = GStylegan2(size=resolution, n_mlp=8, small32=True)
             discriminator = DStylegan2(size=resolution, small32=True,
-                                       d_hidden=512)
+                                       d_hidden=512, n_classes=n_classes)
         elif architecture == "stylegan2_512":
             generator = GStylegan2(size=resolution, n_mlp=8,
                                    channel_multiplier=1.0)
             discriminator = DStylegan2(size=resolution, channel_multiplier=1.0,
-                                       d_hidden=512)
+                                       d_hidden=512, n_classes=n_classes)
         else:
             generator = GStylegan2(size=resolution, n_mlp=2,
                                    channel_multiplier=0.25)
             discriminator = DStylegan2(size=resolution, channel_multiplier=0.25,
-                                       d_hidden=32)
+                                       d_hidden=32, n_classes=n_classes)
     return generator.to(device), discriminator.to(device)
 
 
-__all__ = ["ARCHITECTURES", "get_architecture", "Discriminator",
+def generate(generator: nn.Module, z: torch.Tensor,
+             noise_rng: Optional[torch.Generator] = None,
+             noise: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Eval-mode images of ``generator`` from latents ``z``: SNDCGAN with its
+    running batch-norm statistics; StyleGAN2 clamped to [0, 1], without
+    style mixing, with the noise maps ``noise`` or, where None, maps drawn
+    from ``noise_rng``."""
+    from contrad_tpu_torch.models.stylegan2 import GStylegan2
+
+    if isinstance(generator, GStylegan2):
+        if noise is None:
+            noise = generator.draw_noise(z.shape[0], noise_rng, z.device)
+        return generator(z, noise, None, train=False)
+    return generator(z, train=False)
+
+
+__all__ = ["ARCHITECTURES", "get_architecture", "generate", "Discriminator",
            "l2_normalize_rows"]

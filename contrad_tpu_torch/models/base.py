@@ -8,6 +8,12 @@ supervised-contrastive losses. With ``sg_linear=True`` the GAN head sees
 detached features, so the backbone learns only from the contrastive losses
 (the ContraD mechanism, reference ``base.py:123-126``).
 
+A conditional discriminator (``n_classes > 1``) adds projection
+discrimination to the GAN head: ``d + sum(h * embed(y))``, ``h`` the head's
+hidden activation and ``embed`` the spectrally normalised class table
+``linear.linear_y`` (reference ``base.py:107-130``). Without labels it
+scores as an unconditional one.
+
 ``train`` and ``persist`` reach every spectral-norm layer (backbone and
 heads): ``train`` runs one power iteration, ``persist`` stages its new ``u``
 for :func:`contrad_tpu_torch.ops.spectral_norm.commit_u`; the analogue of the
@@ -16,28 +22,39 @@ JAX package's ``update_state`` (``training/step.py::make_d_apply``).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contrad_tpu_torch.ops.spectral_norm import Init, SNDense, lecun_normal_
+from contrad_tpu_torch.ops.spectral_norm import (
+    Init, SNDense, SNEmbed, lecun_normal_)
 
 
 class TinyDiscriminatorHead(nn.Module):
-    """2-layer GAN score head (reference TinyDiscriminator, base.py:14-35)."""
+    """2-layer GAN score head (reference TinyDiscriminator, base.py:14-35),
+    with the class projection ``linear_y`` where ``n_classes > 1``."""
 
     def __init__(self, n_features: int, d_hidden: int = 128,
-                 use_sn: bool = False, init: Init = lecun_normal_):
+                 use_sn: bool = False, init: Init = lecun_normal_,
+                 n_classes: int = 1):
         super().__init__()
         self.l1 = SNDense(n_features, d_hidden, use_sn=use_sn, init=init)
         self.l2 = SNDense(d_hidden, 1, use_sn=use_sn, init=init)
+        self.linear_y = (SNEmbed(n_classes, d_hidden, use_sn=use_sn)
+                         if n_classes > 1 else None)
 
-    def forward(self, x: torch.Tensor, train: bool = True,
-                persist: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                train: bool = True, persist: bool = True) -> torch.Tensor:
         h = F.leaky_relu(self.l1(x, train, persist), 0.1)
-        return self.l2(h, train, persist)
+        d = self.l2(h, train, persist)
+        if y is not None:
+            if self.linear_y is None:
+                raise ValueError("an unconditional head takes no labels")
+            w_y = self.linear_y(y, train, persist)
+            d = d + torch.sum(h * w_y, dim=1, keepdim=True)
+        return d
 
 
 class ProjectionMLP(nn.Module):
@@ -63,25 +80,42 @@ class Discriminator(nn.Module):
 
     def __init__(self, backbone: nn.Module, d_penul: int, d_hidden: int = 128,
                  d_project: int = 128, use_sn: bool = False,
-                 head_init: Init = lecun_normal_):
+                 head_init: Init = lecun_normal_, n_classes: int = 1):
         super().__init__()
         self.backbone = backbone
+        self.d_penul = d_penul
+        self.n_classes = n_classes
         self.linear = TinyDiscriminatorHead(d_penul, d_hidden, use_sn,
-                                            head_init)
+                                            head_init, n_classes)
         self.projection = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
                                         head_init)
         self.projection2 = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
                                          head_init)
 
-    def forward(self, x: torch.Tensor, sg_linear: bool = False,
-                train: bool = True, persist: bool = True
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                sg_linear: bool = False, train: bool = True,
+                persist: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Returns (d, aux) with aux = {penultimate, projection, projection2}."""
+        """Returns (d, aux) with aux = {penultimate, projection, projection2};
+        ``y``, the class labels, reaches the GAN head of a conditional D."""
         feats = self.backbone(x, train, persist)
-        d = self.linear(feats.detach() if sg_linear else feats, train, persist)
+        d = self.linear(feats.detach() if sg_linear else feats, y, train,
+                        persist)
         return d, {"penultimate": feats,
                    "projection": self.projection(feats, train, persist),
                    "projection2": self.projection2(feats, train, persist)}
+
+
+class LinearClassifier(nn.Module):
+    """Linear probe head for representation evaluation (reference
+    LinearWrapper, base.py:56-61)."""
+
+    def __init__(self, n_features: int, n_classes: int):
+        super().__init__()
+        self.linear = nn.Linear(n_features, n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x)
 
 
 def l2_normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -143,10 +143,10 @@ def sndcgan_n_features(image_size: Tuple[int, int, int], ndf: int = 64) -> int:
 
 
 def DSndcgan(image_size: Tuple[int, int, int], ndf: int = 64,
-             d_hidden: int = 128) -> Discriminator:
+             d_hidden: int = 128, n_classes: int = 1) -> Discriminator:
     """SNDCGAN backbone + the three heads, all spectral-normed, heads at
     N(0, 0.02) (the reference re-inits them so)."""
     return Discriminator(
         backbone=SndcganBackbone(image_size, ndf),
         d_penul=sndcgan_n_features(image_size, ndf), d_hidden=d_hidden,
-        use_sn=True, head_init=dcgan_normal_)
+        use_sn=True, head_init=dcgan_normal_, n_classes=n_classes)

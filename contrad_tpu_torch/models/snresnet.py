@@ -75,16 +75,19 @@ class SnresnetBackbone(nn.Module):
         return at_least_f32(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
 
 
-def _make(num_blocks, d_hidden: int = 128, use_sn: bool = True
-          ) -> Discriminator:
+def _make(num_blocks, d_hidden: int = 128, use_sn: bool = True,
+          n_classes: int = 1) -> Discriminator:
     # 512 channels x 1 x 1 after avg_pool(4) on the /8 features of 32x32
     return Discriminator(backbone=SnresnetBackbone(num_blocks, use_sn),
-                         d_penul=512, d_hidden=d_hidden, use_sn=use_sn)
+                         d_penul=512, d_hidden=d_hidden, use_sn=use_sn,
+                         n_classes=n_classes)
 
 
-def DSnresnet18(d_hidden: int = 128, use_sn: bool = True) -> Discriminator:
-    return _make((2, 2, 2, 2), d_hidden, use_sn)
+def DSnresnet18(d_hidden: int = 128, use_sn: bool = True,
+                n_classes: int = 1) -> Discriminator:
+    return _make((2, 2, 2, 2), d_hidden, use_sn, n_classes)
 
 
-def DSnresnet34(d_hidden: int = 128, use_sn: bool = True) -> Discriminator:
-    return _make((3, 4, 6, 3), d_hidden, use_sn)
+def DSnresnet34(d_hidden: int = 128, use_sn: bool = True,
+                n_classes: int = 1) -> Discriminator:
+    return _make((3, 4, 6, 3), d_hidden, use_sn, n_classes)

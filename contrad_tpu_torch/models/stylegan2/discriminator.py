@@ -83,9 +83,10 @@ class ResidualBackbone(nn.Module):
 
 def DStylegan2(size: int, channel_multiplier: float = 2.0,
                blur_kernel: Sequence[int] = (1, 3, 3, 1),
-               small32: bool = False, d_hidden: int = 128) -> Discriminator:
+               small32: bool = False, d_hidden: int = 128,
+               n_classes: int = 1) -> Discriminator:
     channels = stylegan2_channels(channel_multiplier, small32)
     return Discriminator(
         backbone=ResidualBackbone(size, channel_multiplier, blur_kernel,
                                   small32),
-        d_penul=channels[4] * 4 * 4, d_hidden=d_hidden)
+        d_penul=channels[4] * 4 * 4, d_hidden=d_hidden, n_classes=n_classes)

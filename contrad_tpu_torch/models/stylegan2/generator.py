@@ -191,6 +191,11 @@ class GStylegan2(nn.Module):
             shapes += [(n, 2**i, 2**i, 1)] * 2
         return shapes
 
+    def sample_latent(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """n latents from N(0, 1)^style_dim on ``generator``'s device."""
+        return torch.randn(n, self.style_dim, generator=generator,
+                           device=generator.device)
+
     def draw_noise(self, n: int, generator: torch.Generator,
                    device: torch.device) -> List[torch.Tensor]:
         return [torch.randn(s, generator=generator, device=device)

@@ -1,6 +1,6 @@
 """Spectral normalisation with explicit power-iteration state (the port of
 ``contrad_tpu/ops/spectral_norm.py``: ``spectral_normalize``, ``SNDense``,
-``SNConv``).
+``SNConv``, ``SNEmbed``).
 
 The weight, viewed as a 2-D (out, in) matrix, is divided by its leading
 singular value, estimated by power iteration from a stored vector ``u``: a
@@ -143,3 +143,27 @@ class SNConv(_SpectralState):
             w = self._normalized(w.reshape(w.shape[0], -1), train,
                                  persist).reshape(w.shape)
         return F.conv2d(x, w, self.bias, self.stride, self.padding)
+
+
+class SNEmbed(_SpectralState):
+    """Class embedding with optional spectral norm (reference: SN'd
+    ``nn.Embedding``, the conditional discriminator's projection). ``weight``
+    is the (num_embeddings, features) table, N(0, 0.02) at the start, the
+    JAX ``embedding``; its ``u`` has one entry per class, and is staged and
+    committed per phase like the other layers'."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 use_sn: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(dcgan_normal_(
+            torch.empty(num_embeddings, features)))
+        self.use_sn = use_sn
+        if use_sn:
+            self._init_u(num_embeddings)
+
+    def forward(self, y: torch.Tensor, train: bool = True,
+                persist: bool = True) -> torch.Tensor:
+        w = self.weight
+        if self.use_sn:
+            w = self._normalized(w, train, persist)
+        return F.embedding(y, w)

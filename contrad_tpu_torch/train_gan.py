@@ -5,20 +5,29 @@
         configs/gan/cifar10/c10_b512.toml sndcgan \\
         --mode contrad --aug simclr --use_warmup
 
-It reads the same TOML configs and prints the same scalar names
-(``D_loss``, ``D_penalty``, ``D_real``, ``D_gen``, ``G_loss``). It runs on
-the card; ``--device cpu`` runs it on the CPU. FID, the progress GIF,
-checkpoints, ``--conditional``, ``--dtype bf16`` and multi-step dispatch are
-not ported yet.
+It reads the same TOML configs, prints and logs the same scalar names
+(``D_loss``, ``D_penalty``, ``D_real``, ``D_gen``, ``G_loss``) and writes
+the same run directory, ``<logdir_root>/gan/<config stem>/<architecture>/
+<run name>/<rand>/`` with ``config.toml`` (the effective config),
+``log.txt``, ``scalars.jsonl`` and ``ckpt/``: ``latest.pt`` at every
+``--evaluate_every`` steps, ``step_<N>.pt`` where such a step is a multiple
+of ``--save_every``. ``--resume <logdir>`` continues a run from its newest
+completed checkpoint (the same command line, ``options.max_steps`` raised);
+``--finetune <logdir>`` starts D from another run's, its GAN head fresh.
+``--conditional`` trains a class-conditional D (projection discrimination)
+on a labelled dataset. It runs on the card; ``--device cpu`` runs it on the
+CPU. FID, the progress GIF, ``--dtype bf16`` and multi-step dispatch are not
+ported yet (``--no_fid``, ``--no_gif`` and ``--n_eval_avg`` are accepted).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional, Sequence
+from pathlib import Path
+from typing import Optional, Sequence
 
-import torch
+from contrad_tpu_torch.utils.run import History, add_run_args
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -31,12 +40,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="none | gp | cr | bcr")
     p.add_argument("--aug", default="none", type=str)
     p.add_argument("--use_warmup", action="store_true")
+    p.add_argument("--conditional", action="store_true",
+                   help="class-conditional D (projection y-head): real labels "
+                        "from the dataset, fake labels drawn uniformly")
     p.add_argument("--temp", default=0.1, type=float)
     p.add_argument("--lbd_a", default=1.0, type=float)
     p.add_argument("--print_every", default=50, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_run_args(p)
     return p.parse_args(argv)
 
 
@@ -59,8 +72,14 @@ def build(P: argparse.Namespace):
                                        P.override))
     opt = cfg.options
     train_set, _, image_size = get_dataset(opt.dataset)
+    if P.conditional and train_set.n_classes <= 1:
+        raise ValueError(
+            f"--conditional requires a labeled dataset; '{opt.dataset}' "
+            f"reports n_classes={train_set.n_classes}")
+    n_classes = train_set.n_classes if P.conditional else 1
     generator, discriminator = get_architecture(P.architecture, image_size,
-                                                device=device, seed=P.seed)
+                                                device=device, seed=P.seed,
+                                                n_classes=n_classes)
 
     def adam(module, lr):
         return ScheduledAdam(module.parameters(), lr, tuple(opt.beta),
@@ -77,40 +96,56 @@ def build(P: argparse.Namespace):
                       else None),
         seed=P.seed)
     loader = DeviceBatchIterator(train_set, opt.batch_size * opt.n_critic,
-                                 seed=P.seed, device=device)
+                                 seed=P.seed, device=device,
+                                 with_labels=P.conditional)
     return cfg, loader, trainer
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
-    """Train for ``options.max_steps`` steps; returns one record per printed
-    step: its metrics and the wall seconds per step since the last print."""
+def main(argv: Optional[Sequence[str]] = None) -> History:
+    """Train up to ``options.max_steps`` steps; returns the
+    :class:`~contrad_tpu_torch.utils.run.History`: one record per printed
+    step (its metrics and the wall seconds per step since the last print,
+    checkpoint writes excluded), the logdir and the checkpoints written."""
+    from contrad_tpu_torch.training.modes import run_filename
+    from contrad_tpu_torch.utils import run
+
     P = parse_args(argv)
     cfg, loader, trainer = build(P)
     opt = cfg.options
-    n_g = sum(p.numel() for p in trainer.generator.parameters())
-    n_d = sum(p.numel() for p in trainer.discriminator.parameters())
-    print(f"# Params - G: {n_g}, D: {n_d}")
-    print(str(opt.to_dict()))
-    print(f"device: {trainer.device}")
+    logger = run.open_run(
+        P, cfg, run_filename(P.mode, P.penalty, P.aug, P.temp, P.lbd_a),
+        f"gan/{Path(P.config).stem}/{P.architecture}")
+    first = run.restore(P, trainer, loader, logger)
+    meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
+    run.log_start(logger, trainer, opt, first)
+    logger.log(run.not_ported_note(P))
 
-    history = []
-    sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
-            else lambda: None)
+    history = History(logger.logdir)
+    sync = run.cuda_sync(trainer.device)
     t0, steps = time.perf_counter(), 0
-    for step in range(1, opt.max_steps + 1):
-        metrics = trainer.train_step(next(loader))
+    for step in range(first, opt.max_steps + 1):
+        if P.conditional:
+            images, labels = next(loader)
+            metrics = trainer.train_step(images, labels=labels)
+        else:
+            metrics = trainer.train_step(next(loader))
         steps += 1
         if step % P.print_every == 0:
             m = {k: float(v) for k, v in metrics.items()}  # waits for the step
             sync()
             dt = time.perf_counter() - t0
-            print("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
-                  % (step, m["G_loss"], m["D_loss"],
-                     steps * opt.batch_size * opt.n_critic / max(dt, 1e-9)))
+            logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
+                       % (step, m["G_loss"], m["D_loss"], steps
+                          * opt.batch_size * opt.n_critic / max(dt, 1e-9)))
             print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
+            for name, value in m.items():
+                logger.scalar_summary("gan/train/" + name, value, step)
             history.append(dict(m, step=step, seconds_per_step=dt / steps))
             t0, steps = time.perf_counter(), 0
-    print("Training finished.")
+        if step % P.evaluate_every == 0:
+            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta)
+    logger.log("Training finished.")
+    logger.close()
     return history
 
 

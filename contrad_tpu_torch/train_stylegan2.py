@@ -6,22 +6,30 @@ repo root's ``train_stylegan2.py``):
         --mode contrad --aug simclr --lbd_r1 0.1 --no_lazy --halflife_k 1000 \\
         --use_warmup
 
-It reads the same TOML configs and prints the same scalar names (``D_loss``,
-``D_penalty``, ``D_real``, ``D_gen``, ``D_r1``, ``G_loss``). It runs on the
-card; ``--device cpu`` runs it on the CPU. Checkpoints, FID and the progress
-GIF are not ported yet: ``--evaluate_every``, ``--n_eval_avg``, ``--no_fid``
-and ``--no_gif`` are accepted so that the JAX package's command lines parse,
-and the run says at its start that it evaluates nothing. The port has no
-packed layouts, so it takes no ``--no_packed_aug``.
+It reads the same TOML configs, prints and logs the same scalar names
+(``D_loss``, ``D_penalty``, ``D_real``, ``D_gen``, ``D_r1``, ``G_loss``) and
+writes the same run directory as the JAX CLI,
+``<logdir_root>/gan_dp/st_<config stem>/<architecture>/<run name>/<rand>/``
+(``config.toml``, ``log.txt``, ``scalars.jsonl``, ``ckpt/``), with
+``--evaluate_every``, ``--save_every``, ``--resume`` and ``--finetune`` as
+``train_gan``'s. It runs on the card; ``--device cpu`` runs it on the CPU.
+FID and the progress GIF are not ported yet: an evaluation saves the
+checkpoints only, which the run says at its start (``--n_eval_avg``,
+``--no_fid`` and ``--no_gif`` are accepted so that the JAX package's command
+lines parse). The port has no packed layouts, so it takes no
+``--no_packed_aug``.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional, Sequence
+from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
+
+from contrad_tpu_torch.utils.run import History, add_run_args
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -44,14 +52,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ema_start_k", default=None, type=int)
     p.add_argument("--halflife_lr", default=0, type=int,
                    help="LR half-life in images; 0 disables decay")
-    p.add_argument("--no_fid", action="store_true")
-    p.add_argument("--no_gif", action="store_true")
-    p.add_argument("--n_eval_avg", default=3, type=int)
-    p.add_argument("--evaluate_every", default=2000, type=int)
     p.add_argument("--print_every", default=50, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_run_args(p)
     return p.parse_args(argv)
 
 
@@ -105,29 +110,35 @@ def build(P: argparse.Namespace):
     return cfg, loader, trainer
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
-    """Train for ``options.max_steps`` steps; returns one record per printed
-    step: its metrics and the wall seconds per step since the last print."""
+def main(argv: Optional[Sequence[str]] = None) -> History:
+    """Train up to ``options.max_steps`` steps; returns the
+    :class:`~contrad_tpu_torch.utils.run.History`: one record per printed
+    step (its metrics and the wall seconds per step since the last print,
+    checkpoint writes excluded), the logdir and the checkpoints written."""
+    from contrad_tpu_torch.training.modes import run_filename
+    from contrad_tpu_torch.utils import run
+
     P = parse_args(argv)
     cfg, loader, trainer = build(P)
     opt = cfg.options
     accum = 0.5 ** (opt.batch_size / (P.halflife_k * 1000))
-    n_g = sum(p.numel() for p in trainer.generator.parameters())
-    n_d = sum(p.numel() for p in trainer.discriminator.parameters())
-    print(f"# Params - G: {n_g}, D: {n_d}")
-    print(str(opt.to_dict()))
-    print(f"Use G moving average: {accum}")
-    print(f"device: {trainer.device}")
-    print(f"not ported: in-loop FID (--evaluate_every {P.evaluate_every}, "
-          f"--n_eval_avg {P.n_eval_avg}{', --no_fid' if P.no_fid else ''}) "
-          f"and the progress GIF{' (--no_gif)' if P.no_gif else ''}; "
-          f"this run evaluates nothing")
+    desc = f"R{P.lbd_r1}_mix{P.style_mix}_H{P.halflife_k}"
+    if P.halflife_lr > 0:
+        desc += f"_lr{P.halflife_lr / 1e6:.1f}M"
+    desc += "_NoLazy" if P.no_lazy else "_Lazy"
+    logger = run.open_run(
+        P, cfg, f"{run_filename(P.mode, 'none', P.aug, P.temp, P.lbd_a)}_"
+                f"{desc}", f"gan_dp/st_{Path(P.config).stem}/{P.architecture}")
+    first = run.restore(P, trainer, loader, logger)
+    meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
+    run.log_start(logger, trainer, opt, first)
+    logger.log(f"Use G moving average: {accum}")
+    logger.log(run.not_ported_note(P))
 
-    history = []
-    sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
-            else lambda: None)
+    history = History(logger.logdir)
+    sync = run.cuda_sync(trainer.device)
     t0, steps = time.perf_counter(), 0
-    for step in range(1, opt.max_steps + 1):
+    for step in range(first, opt.max_steps + 1):
         do_r1 = step % P.d_reg_every == 0 and P.lbd_r1 > 0
         do_ema = step * opt.batch_size > P.ema_start_k * 1000
         metrics = trainer.train_step(next(loader),
@@ -138,16 +149,21 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
             m = {k: float(v) for k, v in metrics.items()}  # waits for the step
             sync()
             dt = time.perf_counter() - t0
-            print("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
-                  % (step, m["G_loss"], m["D_loss"],
-                     steps * opt.batch_size / max(dt, 1e-9)))
+            logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
+                       % (step, m["G_loss"], m["D_loss"],
+                          steps * opt.batch_size / max(dt, 1e-9)))
             print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
+            for name, value in m.items():
+                logger.scalar_summary("gan/train/" + name, value, step)
             history.append(dict(m, step=step, seconds_per_step=dt / steps))
             t0, steps = time.perf_counter(), 0
+        if step % P.evaluate_every == 0:
+            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta)
     if trainer.device.type == "cuda":
-        print(f"peak device memory: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print("Training finished.")
+        logger.log(f"peak device memory: "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    logger.log("Training finished.")
+    logger.close()
     return history
 
 

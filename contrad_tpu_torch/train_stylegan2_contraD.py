@@ -11,9 +11,10 @@ the recipe's defaults (``--mode contrad --aug simclr_hq --lbd_r1 0.5
 from __future__ import annotations
 
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 from contrad_tpu_torch.train_stylegan2 import main as train_main
+from contrad_tpu_torch.utils.run import History
 
 DEFAULTS = {
     "--mode": "contrad",
@@ -34,7 +35,7 @@ def with_defaults(argv: Sequence[str]) -> List[str]:
     return argv
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
+def main(argv: Optional[Sequence[str]] = None) -> History:
     return train_main(with_defaults(sys.argv[1:] if argv is None else argv))
 
 

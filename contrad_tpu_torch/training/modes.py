@@ -1,8 +1,11 @@
 """Training modes (the port of ``contrad_tpu/training/modes.py``; reference
 ``training/gan/{std,aug,aug_both,simclr_only,contrad}.py``).
 
-``loss_D(ctx, D, images, gen_images, draws)`` -> (total, metrics) and
-``loss_G(ctx, D, gen_images, aug_params)`` -> g_loss. ``draws`` is a
+``loss_D(ctx, D, images, gen_images, draws, y_real, y_gen)`` -> (total,
+metrics) and ``loss_G(ctx, D, gen_images, aug_params, y_gen)`` -> g_loss.
+``y_real`` and ``y_gen``, the labels of the reals and of the fakes, reach a
+conditional D's passes in the order of the batch they score (``_cat_y``);
+they are None for an unconditional D. ``draws`` is a
 :class:`Draws`: the parameters of the mode's augmentation of the D batch
 and the penalty's draws, made by the caller (:func:`draw_d`), so the tests
 can pass the draws JAX made. The total is ``d_loss + penalty`` as the
@@ -26,7 +29,7 @@ penalties' passes do not.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,35 +65,49 @@ def _metrics(d_loss, penalty, d_real, d_gen) -> Metrics:
             "D_real": d_real.mean(), "D_gen": d_gen.mean()}
 
 
-def _gan_loss_D(ctx, D, images, gen_images, d_input, all_images, draws):
+def _cat_y(y_real, y_gen, *parts) -> Optional[torch.Tensor]:
+    """The labels of a multi-part D batch, each part ``"real"`` or
+    ``"gen"``; None when unconditional."""
+    if y_real is None and y_gen is None:
+        return None
+    vecs = {"real": y_real, "gen": y_gen}
+    return torch.cat([vecs[p] for p in parts], dim=0)
+
+
+def _gan_loss_D(ctx, D, images, gen_images, d_input, all_images, draws,
+                y_real, y_gen):
     """The GAN loss on ``D(d_input)`` = [real, fake] plus the penalty, which
     gets ``all_images`` as the mode's [real, fake] batch."""
     n = images.shape[0]
-    d_all, _ = D(d_input)
+    d_all, _ = D(d_input, y=_cat_y(y_real, y_gen, "real", "gen"))
     d_real, d_gen = d_all[:n], d_all[n:]
     d_loss = gan_d_loss(d_real, d_gen, ctx.loss_type)
     penalty = penalties.compute_penalty(
         ctx, D, images=images, gen_images=gen_images, all_images=all_images,
-        d_real=d_real, d_gen=d_gen, params=draws.penalty)
+        d_real=d_real, d_gen=d_gen, params=draws.penalty, y_real=y_real,
+        y_gen=y_gen)
     return d_loss + penalty, _metrics(d_loss, penalty, d_real, d_gen)
 
 
-def std_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+def std_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
+               y_real=None, y_gen=None):
     gen_images = gen_images.detach()
     all_images = torch.cat([images, gen_images], dim=0)
     return _gan_loss_D(ctx, D, images, gen_images, all_images, all_images,
-                       draws)
+                       draws, y_real, y_gen)
 
 
-def aug_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+def aug_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
+               y_real=None, y_gen=None):
     gen_images = gen_images.detach()
     all_images = torch.cat([ctx.augment.apply(images, draws.aug), gen_images],
                            dim=0)
     return _gan_loss_D(ctx, D, images, gen_images, all_images, all_images,
-                       draws)
+                       draws, y_real, y_gen)
 
 
-def aug_both_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+def aug_both_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
+                    y_real=None, y_gen=None):
     if ctx.loss_type == "lsgan":
         raise NotImplementedError(
             "aug_both has no lsgan branch (reference aug_both.py)")
@@ -98,10 +115,13 @@ def aug_both_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
     all_images = torch.cat([images, gen_images], dim=0)
     return _gan_loss_D(ctx, D, images, gen_images,
                        ctx.augment.apply(all_images, draws.aug), all_images,
-                       draws)
+                       draws, y_real, y_gen)
 
 
-def simclr_only_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
+def simclr_only_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
+                       y_real=None, y_gen=None):
+    """Labels are not used: the D pass trains the projection alone, as in
+    the reference."""
     n = images.shape[0]
     real_images = torch.cat([images, images], dim=0)
     _, aux = D(ctx.augment.apply(real_images, draws.aug))
@@ -111,14 +131,16 @@ def simclr_only_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws):
     return simclr_loss, _metrics(simclr_loss, zero, zero, zero)
 
 
-def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws
-                   ) -> Tuple[torch.Tensor, Metrics]:
+def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
+                   y_real=None, y_gen=None) -> Tuple[torch.Tensor, Metrics]:
     """Reference ``contrad.py:35-70``: one D pass over augmented
     [real, real, fake]; the GAN head sees detached features, so the
     backbone's gradient is purely contrastive."""
     n = images.shape[0]
     cat_images = torch.cat([images, images, gen_images.detach()], dim=0)
-    d_all, aux = D(ctx.augment.apply(cat_images, draws.aug), sg_linear=True)
+    d_all, aux = D(ctx.augment.apply(cat_images, draws.aug),
+                   y=_cat_y(y_real, y_gen, "real", "real", "gen"),
+                   sg_linear=True)
 
     views = l2_normalize_rows(at_least_f32(aux["projection"]))
     simclr_loss = nt_xent(views[:n], views[n:2 * n], temperature=ctx.temp)
@@ -133,22 +155,25 @@ def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws
                                              d_gen)
 
 
-def std_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
+def std_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
+               ) -> torch.Tensor:
     """G loss on the fakes as they are (``aug_params`` unused)."""
-    d_gen, _ = D(gen_images)
+    d_gen, _ = D(gen_images, y=y_gen)
     return gan_g_loss(d_gen, ctx.loss_type)
 
 
-def augmented_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
+def augmented_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
+                     ) -> torch.Tensor:
     """G loss on augmented fakes (``_augmented_loss_G_lsgan_ok``)."""
-    d_gen, _ = D(ctx.augment.apply(gen_images, aug_params))
+    d_gen, _ = D(ctx.augment.apply(gen_images, aug_params), y=y_gen)
     return gan_g_loss(d_gen, ctx.loss_type)
 
 
-def aug_both_loss_G(ctx: ModeCtx, D, gen_images, aug_params) -> torch.Tensor:
+def aug_both_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
+                    ) -> torch.Tensor:
     """G loss on augmented fakes, lsgan read as wgan (the reference's
     aug_both G loss has no lsgan branch; ``_augmented_loss_G``)."""
-    d_gen, _ = D(ctx.augment.apply(gen_images, aug_params))
+    d_gen, _ = D(ctx.augment.apply(gen_images, aug_params), y=y_gen)
     loss_type = "wgan" if ctx.loss_type == "lsgan" else ctx.loss_type
     return gan_g_loss(d_gen, loss_type)
 
@@ -182,3 +207,21 @@ def draw_d(mode: Mode, ctx: ModeCtx, shape: Tuple[int, ...], rng) -> Draws:
     aug = (ctx.augment.sample((mode.d_aug_batches * n,) + rest, rng)
            if mode.d_aug_batches else None)
     return Draws(aug, penalties.sample(ctx.penalty, ctx.augment, shape, rng))
+
+
+def run_filename(mode: str, penalty: str, aug: str, temp: float,
+                 lbd_a: float) -> str:
+    """A run's directory name (reference ``training/gan/__init__.py:9-24``)."""
+    if mode == "std":
+        filename = f"{mode}_{penalty}"
+        if "cr" in penalty:
+            filename += f"_{aug}"
+    elif mode in ("aug", "aug_both"):
+        filename = f"{mode}_{aug}_{penalty}"
+    elif mode == "simclr_only":
+        filename = f"{mode}_{aug}_T{temp}"
+    elif mode == "contrad":
+        filename = f"{mode}_{aug}_L{lbd_a}_T{temp}"
+    else:
+        raise NotImplementedError(f"unknown training mode: {mode}")
+    return filename

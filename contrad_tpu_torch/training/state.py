@@ -45,6 +45,15 @@ class ScheduledAdam:
         self.opt.zero_grad(set_to_none=True)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """Adam's moments and step per parameter, and the update ``count``
+        that the warmup and the decay read."""
+        return {"count": self.count, "adam": self.opt.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.opt.load_state_dict(state["adam"])
+
 
 @torch.no_grad()
 def ema_update(ema: torch.nn.Module, model: torch.nn.Module,

@@ -24,6 +24,13 @@
 R1 is a gradient of a gradient through D, so the blur kernel's
 ``autograd.Function`` runs forward, backward and double backward there.
 
+A conditional D (``n_classes > 1``, ``train_gan --conditional``) takes the
+real batch's labels in :meth:`GANTrainer.train_step`; the fakes' labels are
+drawn uniformly from ``[0, n_classes)``, one per fake, in each D sub-step
+and in the G phase (reference ``train_gan.py:124-227``; G itself is
+unconditional). An unconditional D ignores labels. The StyleGAN2 trainer is
+unconditional, as in the JAX package.
+
 Every random draw comes from the trainer's :class:`AugRng`, and every draw
 can be passed in instead (``train_step(..., draws=)``, the phases' and the
 phase losses' arguments), so the tests can feed the draws JAX made. A step
@@ -68,6 +75,9 @@ class StepDraws(NamedTuple):
     critic: List[Tuple[Dict[str, Any], Draws]]  # per D sub-step: G, D loss
     g: Tuple[Dict[str, Any], Any]  # the G phase: G's draws, its augmentation
     r1: Any = None  # StyleGAN2: R1's augmentation of the reals (None: no R1)
+    # conditional D: the fakes' labels of each D sub-step, then of the G
+    # phase (None: unconditional)
+    y_gen: Optional[List[torch.Tensor]] = None
 
 
 class GANTrainer:
@@ -95,6 +105,33 @@ class GANTrainer:
         self.dtype = next(discriminator.parameters()).dtype
         self.device = next(generator.parameters()).device
         self.rng = AugRng.from_seed(seed, self.device)
+        self.n_classes = discriminator.n_classes
+        self.conditional = self.n_classes > 1
+
+    # ------------------------------------------------------------- state
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resumed run needs of the trainer: G, D and the EMA G
+        with their buffers (spectral norm's ``u``, G's batch-norm
+        statistics), both optimisers and both random streams."""
+        return {"generator": self.generator.state_dict(),
+                "discriminator": self.discriminator.state_dict(),
+                "g_ema": (None if self.g_ema is None
+                          else self.g_ema.state_dict()),
+                "g_optimizer": self.g_tx.state_dict(),
+                "d_optimizer": self.d_tx.state_dict(),
+                "rng": {"device": self.rng.device.get_state(),
+                        "host": self.rng.host.get_state()}}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.generator.load_state_dict(state["generator"])
+        self.discriminator.load_state_dict(state["discriminator"])
+        if self.g_ema is not None:
+            self.g_ema.load_state_dict(state["g_ema"])
+        self.g_tx.load_state_dict(state["g_optimizer"])
+        self.d_tx.load_state_dict(state["d_optimizer"])
+        self.rng.device.set_state(state["rng"]["device"].cpu())
+        self.rng.host.set_state(state["rng"]["host"].cpu())
 
     # ------------------------------------------------------------- draws
 
@@ -109,6 +146,11 @@ class GANTrainer:
         """The draws of one D loss on a real batch of ``shape``."""
         return draw_d(self.mode, self.ctx, tuple(shape), self.rng)
 
+    def draw_y(self, n: int) -> torch.Tensor:
+        """``n`` fake labels, uniform in ``[0, n_classes)``."""
+        return torch.randint(0, self.n_classes, (n,), generator=self.rng.device,
+                             device=self.device)
+
     def draw_g_aug(self, shape):
         """The G loss's augmentation of a fake batch of ``shape``."""
         return self.draw_aug(shape) if self.mode.g_aug else None
@@ -121,30 +163,33 @@ class GANTrainer:
         batch = (shape[0] // self.n_critic,) + tuple(shape[1:])
         critic = [(self.draw_g(batch[0]), self.draw_d(batch))
                   for _ in range(self.n_critic)]
-        return StepDraws(real, critic, (self.draw_g(batch[0]),
-                                        self.draw_g_aug(batch)))
+        g = (self.draw_g(batch[0]), self.draw_g_aug(batch))
+        y_gen = ([self.draw_y(batch[0]) for _ in range(self.n_critic + 1)]
+                 if self.conditional else None)
+        return StepDraws(real, critic, g, y_gen=y_gen)
 
     # ------------------------------------------------------------- phases
 
-    def d_substep(self, images, g_draws: Dict[str, Any], draws: Draws
-                  ) -> Metrics:
-        """One D update on ``images`` and fresh fakes (G in train mode, its
+    def d_substep(self, images, g_draws: Dict[str, Any], draws: Draws,
+                  y_real=None, y_gen=None) -> Metrics:
+        """One D update on ``images`` (labelled ``y_real`` for a conditional
+        D) and fresh fakes (labelled ``y_gen``; G in train mode, its
         batch-norm statistics advancing); D's ``u`` committed."""
         with torch.no_grad():
             gen_images = self.generator(**g_draws, train=True)
         total, metrics = self.loss_D(self.ctx, self.discriminator, images,
-                                     gen_images, draws)
+                                     gen_images, draws, y_real, y_gen)
         self.d_tx.step(_grads(total, self.discriminator))
         commit_u(self.discriminator)
         return metrics
 
-    def g_update(self, g_draws: Dict[str, Any], aug_params
+    def g_update(self, g_draws: Dict[str, Any], aug_params, y_gen=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One G update against the current D, whose ``u`` advances;
         returns the loss and the (pre-update) fakes."""
         gen_images = self.generator(**g_draws, train=True)
         loss = self.loss_G(self.ctx, self.discriminator, gen_images,
-                           aug_params)
+                           aug_params, y_gen)
         self.g_tx.step(_grads(loss, self.generator))
         commit_u(self.discriminator)
         return loss, gen_images
@@ -152,20 +197,28 @@ class GANTrainer:
     # ------------------------------------------------------------- train
 
     def train_step(self, images: torch.Tensor, ema_decay: float = 0.0,
-                   draws: Optional[StepDraws] = None) -> Metrics:
+                   draws: Optional[StepDraws] = None,
+                   labels: Optional[torch.Tensor] = None) -> Metrics:
         """One step on ``n_critic`` real batches (uint8 or float NHWC on the
-        device, stacked); returns the last D sub-step's metrics and
-        ``G_loss``, detached, still on the device."""
+        device, stacked) and, for a conditional D, their ``labels``;
+        returns the last D sub-step's metrics and ``G_loss``, detached,
+        still on the device."""
+        if self.conditional and labels is None:
+            raise ValueError("the discriminator has n_classes > 1: pass labels")
         images = to_float(images, self.dtype)
         if draws is None:
             draws = self.draw_step(images.shape)
         if self.real_augment is not None:
             images = self.real_augment.apply(images, draws.real)
         n = images.shape[0] // self.n_critic
-        for batch, (g_draws, d_draws) in zip(images.split(n), draws.critic,
-                                             strict=True):
-            metrics = self.d_substep(batch, g_draws, d_draws)
-        metrics["G_loss"], _ = self.g_update(*draws.g)
+        y_real = (labels.split(n) if self.conditional
+                  else [None] * self.n_critic)
+        y_gen = draws.y_gen or [None] * (self.n_critic + 1)
+        for batch, (g_draws, d_draws), yr, yg in zip(
+                images.split(n), draws.critic, y_real, y_gen[:-1],
+                strict=True):
+            metrics = self.d_substep(batch, g_draws, d_draws, yr, yg)
+        metrics["G_loss"], _ = self.g_update(*draws.g, y_gen[-1])
         if self.g_ema is not None:
             ema_update(self.g_ema, self.generator, ema_decay)
         return {k: v.detach() for k, v in metrics.items()}
@@ -185,6 +238,10 @@ class StyleGAN2Trainer(GANTrainer):
                          d_optimizer, loss_type, temp=temp, lbd_a=lbd_a,
                          n_critic=n_critic, ema=True,
                          real_augment=real_augment, seed=seed)
+        if self.conditional:
+            raise NotImplementedError(
+                "the StyleGAN2 trainer is unconditional, as in the JAX "
+                "package")
         self.lbd_r1 = lbd_r1
         self.d_reg_every = d_reg_every
         self.style_mix = style_mix

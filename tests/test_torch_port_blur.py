@@ -267,3 +267,73 @@ def test_kernel_schedule_covers_the_output_once_and_matches_plain(
     got = _emulate_kernel(x, taps_v, taps_h, pad, plan)
     want = port_blur.blur2d_plain(torch.from_numpy(x), taps_v, taps_h, pad)
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_evaluation_path_cases_are_what_the_models_launch(monkeypatch):
+    """``chip_smoke.eval_blur_cases`` against the blur calls that the port's
+    32x32 StyleGAN2 G and D (full width, on the CPU, small batches) make
+    on each evaluation path: a probe step's features and a shorter test
+    batch, a Langevin step (whose forward blurs all see inputs that need a
+    gradient, so each has an adjoint), a chain's final sample and a batch
+    of samples; each forward case once per call, and the adjoint rows the
+    Langevin step's forward calls give by the rule of ``blur_cases``. Every
+    case takes the vector path in float32 and bfloat16."""
+    from collections import Counter
+
+    import contrad_tpu_torch.models.stylegan2.layers as layers
+    from chip_smoke import eval_blur_cases
+    from contrad_tpu_torch.models import generate, get_architecture
+    from contrad_tpu_torch.test_gan_sample_cddls import langevin_step
+    from contrad_tpu_torch.test_lineval import features
+
+    calls, real = [], layers.blur2d
+
+    def spy(x, taps_v, taps_h, pad):
+        calls.append((tuple(x.shape), tuple(pad), x.requires_grad))
+        return real(x, taps_v, taps_h, pad)
+
+    monkeypatch.setattr(layers, "blur2d", spy)
+    G, D = get_architecture("stylegan2", (32, 32, 3), device="cpu", seed=0)
+    G.requires_grad_(False)
+    D.requires_grad_(False)
+    rng = torch.Generator().manual_seed(0)
+    w, b = torch.randn(D.d_penul, 10) * 0.01, torch.zeros(10)
+    recorded = {}
+
+    def record(path, fn):
+        calls.clear()
+        fn()
+        recorded[path] = list(calls)
+
+    record("lineval_32", lambda: features(D, torch.rand(4, 32, 32, 3)))
+    record("lineval_32_tail", lambda: features(D, torch.rand(2, 32, 32, 3)))
+    z = G.sample_latent(4, rng)
+    record("cddls_32", lambda: langevin_step(
+        G, D, w, b, z, torch.randn(4, 32, 32, 3), 3, 0.01, 0.1, 1.0,
+        G.draw_noise(4, rng, z.device), torch.randn_like(z),
+        torch.randn(4, 32, 32, 3)))
+    with torch.no_grad():
+        record("cddls_32_final", lambda: generate(G, z, noise_rng=rng))
+        record("sample_32", lambda: generate(G, z[:3], noise_rng=rng))
+
+    cases = eval_blur_cases(probe_batch=4, probe_tail=2, cddls_batch=4,
+                            sample_batch=3)
+    for path, got in recorded.items():
+        want = Counter()
+        for c in cases:
+            if not c["adjoint"] and path in c["per_step"]:
+                want[(tuple(c["shape"]), tuple(c["pad"]))] += \
+                    c["per_step"][path]
+        assert Counter((s, p) for s, p, _ in got) == want, path
+        needs_grad = [(s, p) for s, p, g in got if g]
+        assert len(needs_grad) == (len(got) if path == "cddls_32" else 0)
+        adjoint = Counter(
+            (tuple(c["shape"]), tuple(c["pad"])) for c in cases
+            if c["adjoint"] and path in c["per_step"])
+        assert adjoint == Counter(
+            ((n, h + sum(p) - 3, w_ + sum(p) - 3, ch), (3 - p[0], 3 - p[1]))
+            for (n, h, w_, ch), p in needs_grad), path
+    for c in eval_blur_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = port_blur.launch_plan(c["shape"], 4, c["pad"], dtype)
+            assert plan.vector == 1, c

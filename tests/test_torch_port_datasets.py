@@ -76,7 +76,7 @@ def test_image_size_matches_jax(name):
 
 
 def test_image_size_refuses_unknown_names():
-    for name in ("cifar10_lin", "afhq_fox", "imagenet"):
+    for name in ("cifar10_crop", "afhq_fox", "imagenet"):
         with pytest.raises(NotImplementedError):
             get_image_size(name)
         with pytest.raises(NotImplementedError):

@@ -138,3 +138,25 @@ def test_blur_refuses_devices_other_than_cuda_and_cpu():
         blur2d(torch.zeros(1, 4, 4, 2, device="meta"), (0.5, 0.5),
                (0.5, 0.5), (0, 1))
     assert blur2d.launches == before
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("test_gan_sample", ["logs/none", "sndcgan"]),
+    ("test_lineval", ["logs/none", "sndcgan"]),
+    ("test_gan_sample_cddls", ["logs/none", "logs/none/lin.npz", "sndcgan"]),
+])
+def test_evaluation_clis_default_to_the_card(no_card, cli, argv):
+    import importlib
+
+    main = importlib.import_module(f"contrad_tpu_torch.{cli}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+def test_load_run_defaults_to_the_card(no_card):
+    from contrad_tpu_torch.utils.run_loading import load_run
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_run("logs/none", "sndcgan")
+    with pytest.raises(FileNotFoundError, match="config.toml"):
+        load_run("logs/none", "sndcgan", device="cpu")

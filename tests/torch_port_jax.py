@@ -238,3 +238,18 @@ def jax_simclr_params(key, n, h, w, mode="simclr", hyper=None):
         params.append({"mask": cmask,
                        "inner": jax_cutout_params(ckey, n, h, w)})
     return params
+
+
+def jax_fake_labels(key, n, n_critic, n_classes, real_flip=False):
+    """The fake labels of a conditional ``GANTrainer._step``
+    (step.py:202-216, :266-271) from the state's key: one vector per D
+    sub-step, then the G phase's, as the port's ``StepDraws.y_gen``."""
+    rng, out = key, []
+    if real_flip:
+        rng, _ = jax.random.split(rng)
+    for _ in range(n_critic):  # _d_substep
+        rng, _, _, _, y_rng = jax.random.split(rng, 5)
+        out.append(jax.random.randint(y_rng, (n,), 0, n_classes))
+    rng, _, _, _, y_rng, _ = jax.random.split(rng, 6)
+    out.append(jax.random.randint(y_rng, (n,), 0, n_classes))
+    return [torch.from_numpy(np.asarray(y).astype(np.int64)) for y in out]
