@@ -15,8 +15,10 @@ result line:
    each with its launches per step on each path, and that the 32x32 run's
    evaluation gives it (the probe's D forward at batch 256 and its shorter
    last test batch, cDDLS's G and D forward and adjoint at batch 100 and
-   its final sample, sampling's G forward at batch 500), each with its
-   launches per call, in float32 (TF32 off) and
+   its final sample, sampling's G forward at batch 500, the in-loop FID
+   sampler's EMA G forward at its chunk of 512 and the progress GIF's at
+   its 16 latents), each with its launches per call, in float32 (TF32 off)
+   and
    bfloat16, forward, backward and double backward (the kernel through its
    autograd ``Function``, the plain version as three forward calls); then
    time the kernel (L2 warm and cold, float32 and bfloat16), the plain
@@ -59,22 +61,35 @@ result line:
    ms beside phase 3's launch-weighted sum); then one step of the recipe's
    trainer at batch 4 with R1 on the card against the CPU (same weights,
    images and draws, TF32 off): losses and both phases' gradients;
-8. the evaluation path, its runs written under a temporary directory: the
-   conditional flagship (``train_gan ... --conditional``, batch 512) on
-   labelled synthetic data for 6 steps with ``--evaluate_every 3
-   --save_every 6`` (ms/step, img/s and peak memory beside phase 6's; each
-   checkpoint's size and seconds), its state restored from ``step_6``
-   equal to the file bitwise on the card, and ``--resume`` to step 8 (the
-   first resumed step must be 7); on that run the linear probe (2 epochs
-   at batch 256: seconds an epoch, train and test accuracy), 1,000 samples
-   and cDDLS (20 steps, 5,000
-   samples at batch 500: ms a Langevin step, samples/s), no blur launch
-   allowed; then phase 4's recipe for 6 steps with a checkpoint, and on it
-   the probe (1 epoch), 1,000 samples from the EMA G and cDDLS (10 steps at
-   batch 100), the blur launching exactly as phase 3 counts per call; then
-   card against CPU (TF32 off): one conditional flagship step at batch 64
-   (losses, parameters, ``u``, batch-norm statistics), and on each run's
-   weights one probe step and 3 Langevin steps.
+8. the evaluation path, its runs written under a temporary directory (the
+   FID reference statistics too): the conditional flagship (``train_gan
+   ... --conditional``, batch 512) on labelled synthetic data for 6 steps
+   with ``--evaluate_every 3 --save_every 6 --fid_embed moments
+   --n_eval_avg 3`` at the config's ``fid_size`` of 10,000 (ms/step, img/s
+   and peak memory beside phase 6's; each checkpoint's size and seconds;
+   one finite CSV row an evaluation, ``ckpt/best.pt`` at the best score,
+   one GIF frame an evaluation, seconds an evaluation), its state restored
+   from ``step_6`` equal to the file bitwise on the card, and ``--resume``
+   to step 9 (the first resumed step must be 7; the FID history, best and
+   ``eval_seed`` restored, the CSV and GIF growing); on that run the
+   linear probe (2 epochs at batch 256: seconds an epoch, train and test
+   accuracy), 1,000 samples and cDDLS on ``best`` (20 steps, 5,000 samples
+   at batch 500: ms a Langevin step, samples/s), no blur launch allowed;
+   then phase 4's recipe for 6 steps evaluating as the flagship at steps 3
+   and 6 (FID of the EMA G), the blur launching in each evaluation exactly
+   as phase 3 counts, and on it the probe (1 epoch), 1,000 samples from
+   the EMA G and cDDLS on ``best`` (10 steps at batch 100), the blur
+   launching exactly as phase 3 counts per call; then card against CPU
+   (TF32 off): one conditional flagship step at batch 64 (losses,
+   parameters, ``u``, batch-norm statistics), and on each run's weights one
+   probe step and 3 Langevin steps;
+9. the FID InceptionV3 with random weights from a numpy seed: card against
+   CPU (TF32 off) at batch 2 on 32x32, 299x299 and 512x512 inputs, pool3
+   and logits; its forward timed at batch 500 on 32x32 and 512x512 inputs
+   (TF32 convs as in training): ms, img/s and TFLOP/s, beside TF32 off,
+   NCHW layout and cuDNN's autotuner at 32x32, and a profile of it (kernel
+   time by class); then ``test_fid_is --embed moments`` on phase 8's
+   StyleGAN2 samples.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -136,6 +151,10 @@ PROBE_BATCH = 256  # test_lineval's default batch
 CDDLS_BATCH = 500  # test_gan_sample_cddls's default batch (SNDCGAN run)
 CDDLS_BATCH_SG2 = 100  # the StyleGAN2 run's chains
 SAMPLE_BATCH = 500  # test_gan_sample's default batch
+FID_SIZE = 10000  # the configs' fid_size (c10_b512, c10_style64)
+FID_CHUNK = min(512, FID_SIZE)  # the FID sampler's batch_per_call
+FID_AVG = 3  # --n_eval_avg
+GIF_LATENTS = 16  # the progress GIF's fixed latents
 
 
 T0 = time.perf_counter()
@@ -208,7 +227,8 @@ def blur_cases():
 def eval_blur_cases(probe_batch: int = PROBE_BATCH,
                     probe_tail: int = EVAL_TEST % PROBE_BATCH,
                     cddls_batch: int = CDDLS_BATCH_SG2,
-                    sample_batch: int = SAMPLE_BATCH):
+                    sample_batch: int = SAMPLE_BATCH,
+                    fid_batch: int = FID_CHUNK, gif_batch: int = GIF_LATENTS):
     """The blur's (shape, pad, upsample factor) cases on the evaluation
     path of a 32x32 StyleGAN2 run, with its launches per call
     (``per_step``): ``lineval_32``, a probe step or a full test batch (D's
@@ -217,9 +237,11 @@ def eval_blur_cases(probe_batch: int = PROBE_BATCH,
     upsample blurs and D's six, forward and adjoint, the adjoint rows
     derived as in :func:`blur_cases`); ``cddls_32_final``, a chain's final
     sample (G forward); ``sample_32``, a batch of ``test_gan_sample`` (G
-    forward). 6, 6, 18, 3 and 3 launches a call.
-    ``tests/test_torch_port_blur.py`` holds them to what the port's models
-    launch."""
+    forward); ``fid_32``, a chunk of the in-loop FID sampler (the EMA G
+    forward at ``batch_per_call``); ``gif_32``, a frame of the progress GIF
+    (G forward on the 16 fixed latents). 6, 6, 18, 3, 3, 3 and 3 launches a
+    call. ``tests/test_torch_port_blur.py`` holds them to what the port's
+    models launch."""
     ch = {8: 512, 16: 256, 32: 128}
 
     def g(who, n, per_call):
@@ -236,6 +258,8 @@ def eval_blur_cases(probe_batch: int = PROBE_BATCH,
     chain = (g("G cddls", cddls_batch, {"cddls_32": 1, "cddls_32_final": 1})
              + d("D cddls", cddls_batch, {"cddls_32": 1}))
     fwd += chain + g("G sample", sample_batch, {"sample_32": 1})
+    fwd += g("G fid", fid_batch, {"fid_32": 1}) + g("G gif", gif_batch,
+                                                     {"gif_32": 1})
     cases = [dict(who=who, shape=shape, pad=pad, up=up, per_step=per_call,
                   adjoint=False) for who, shape, pad, up, per_call in fwd]
     for who, (n, h, w, c), pad, up, _ in chain:
@@ -939,7 +963,8 @@ def evaluate_run(arch: str, logdir: str, per_step, probe_epochs: int,
     """The three evaluation CLIs on a trained run: the linear probe
     (``probe_epochs`` epochs at batch 256), 1,000 samples (from the EMA G
     with ``use_ema``) and cDDLS (``cddls_steps`` steps, ``cddls_samples``
-    samples at ``cddls_batch``, the probe's head, ``latest``), each with the
+    samples at ``cddls_batch``, the probe's head, ``best``, its default),
+    each with the
     blur's launches as ``per_step`` counts them (all zero on SNDCGAN); the
     probe's losses must be finite (its accuracies are reported: on a D
     trained for a few steps they need not beat chance), and every sample
@@ -982,9 +1007,9 @@ def evaluate_run(arch: str, logdir: str, per_step, probe_epochs: int,
                       + per_step["cddls_32_final"]) if sg2 else 0)
     cddls, cddls_s, cddls_n = eval_cli(
         test_gan_sample_cddls.main,
-        [logdir, probe["npz"], arch, "--ckpt", "latest", "--n_steps",
-         str(cddls_steps), "--n_samples", str(cddls_samples), "--batch_size",
-         str(cddls_batch)], want, f"{arch}'s cDDLS")
+        [logdir, probe["npz"], arch, "--n_steps", str(cddls_steps),
+         "--n_samples", str(cddls_samples), "--batch_size",
+         str(cddls_batch)], want, f"{arch}'s cDDLS (ckpt/best)")
     if cddls["samples"] != cddls_samples or count_pngs(
             cddls["subdir"]) != cddls_samples:
         raise AssertionError(f"cDDLS wrote {cddls['samples']} samples")
@@ -998,7 +1023,7 @@ def evaluate_run(arch: str, logdir: str, per_step, probe_epochs: int,
         f"{cddls_n})")
     return dict(probe=probe, probe_s=probe_s, probe_launches=probe_n,
                 feature_norm=scale[0], feature_norm_init=scale[1],
-                sample_s=sample_s, sample_launches=sample_n,
+                sample_s=sample_s, sample_launches=sample_n, sample_dir=subdir,
                 cddls=cddls, cddls_s=cddls_s, cddls_launches=cddls_n,
                 cddls_ms_per_step=ms_step, cddls_batch=cddls_batch,
                 cddls_samples_per_s=cddls_samples / cddls["chain_seconds"])
@@ -1068,8 +1093,98 @@ def eval_card_vs_cpu(arch: str, logdir: str, batch: int = 8) -> float:
     return worst
 
 
+FID_FLAGS = ["--fid_embed", "moments", "--n_eval_avg", str(FID_AVG)]
 FLAGSHIP_COND = FLAGSHIP + ["--conditional", "--evaluate_every", "3",
-                            "--save_every", "6"]
+                            "--save_every", "6"] + FID_FLAGS
+SG2_EVAL = RECIPE + ["--evaluate_every", "3"] + FID_FLAGS
+EVAL_LAUNCHES = []  # the blur's launches in each evaluation of a run
+
+
+def count_evaluation_launches() -> None:
+    """Record the blur's launches in each call of the CLIs' evaluation
+    (``utils/run.py::evaluate``, which they look up in its module) in
+    ``EVAL_LAUNCHES``."""
+    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.utils import run
+
+    real = run.evaluate
+
+    def evaluate(*args, **kwargs):
+        before = blur.blur2d.launches
+        out = real(*args, **kwargs)
+        EVAL_LAUNCHES.append(blur.blur2d.launches - before)
+        return out
+
+    run.evaluate = evaluate
+
+
+def gif_frames(path: str) -> int:
+    """The number of images in a GIF file, from its block structure."""
+    data = Path(path).read_bytes()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path} is not a GIF89a file")
+    pos, n = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0), 0
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # an extension: label, then sub-blocks
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # an image: descriptor, code size, data
+            n += 1
+            pos = skip_sub_blocks(pos + 11)
+        else:
+            raise AssertionError(f"{path}: unknown block {data[pos]:#x}")
+    return n
+
+
+def check_fid_run(r, steps, what: str):
+    """The in-loop evaluation's outputs of a run (``run_cli``) that
+    evaluated at ``steps``, maybe across a restart: one CSV (one
+    ``eval_seed``) with one finite row an evaluation, ``ckpt/best.pt`` at
+    the best mean, one GIF frame an evaluation. Returns the CSV's means
+    and the seconds of each evaluation and of its FID trials."""
+    import glob
+
+    from contrad_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    logdir, evals = r["logdir"], r["history"].evals
+    csvs = glob.glob(os.path.join(logdir, "results_fid_*.csv"))
+    if len(csvs) != 1:
+        raise AssertionError(f"{what}: FID CSVs {csvs}")
+    seed = csvs[0].rsplit("_", 1)[1][:-len(".csv")]
+    rows = Path(csvs[0]).read_text().splitlines()
+    header = ",".join(["step"] + [f"fid_{i}" for i in range(FID_AVG)]
+                      + ["mean"])
+    table = [[float(v) for v in row.split(",")] for row in rows[1:]]
+    if rows[0] != header or [int(t[0]) for t in table] != list(steps):
+        raise AssertionError(f"{what}: CSV {rows}")
+    if not all(math.isfinite(v) for t in table for v in t):
+        raise AssertionError(f"{what}: FID not finite: {table}")
+    means = [t[-1] for t in table]
+    best_step = int(table[means.index(min(means))][0])
+    if restore_checkpoint(logdir, "best")["step"] != best_step:
+        raise AssertionError(f"{what}: ckpt/best.pt is not step {best_step}")
+    frames = gif_frames(os.path.join(logdir,
+                                     f"training_progress_{seed}.gif"))
+    if frames != len(steps):
+        raise AssertionError(f"{what}: {frames} GIF frames")
+    log(f"  {what}: FID (moments) {', '.join(f'{m:.6g}' for m in means)} at"
+        f" steps {list(steps)}, best {min(means):.6g} (ckpt/best.pt at step "
+        f"{best_step}); {frames} GIF frames; seconds an evaluation "
+        + ", ".join(f"{e['seconds']:.3f} (FID {e['fid_seconds']:.3f})"
+                    for e in evals))
+    return dict(eval_seed=int(seed), means=means, best_step=best_step,
+                eval_seconds=[e["seconds"] for e in evals],
+                fid_seconds=[e["fid_seconds"] for e in evals])
+
+
+def expected_saves(evals, save_every: int):
+    return [n for e in evals for n in ["latest"] + ["best"] * e["is_best"]
+            + ([f"step_{e['step']}"] if e["step"] % save_every == 0 else [])]
 
 
 def evaluation_phase(train_gan, train_stylegan2, per_step, flagship):
@@ -1082,6 +1197,7 @@ def evaluation_phase(train_gan, train_stylegan2, per_step, flagship):
     phase("[8] the evaluation path: conditional flagship, checkpoints and "
           "resume, probe, sampling and cDDLS")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    EVAL_LAUNCHES.clear()
     cond = run_cli(train_gan.main, FLAGSHIP_COND, EVAL_DATA, 6)
     log_run("conditional flagship contrad, batch", cond)
     log(f"  unconditional (phase 6): {flagship['ms_per_step']:.2f} ms/step, "
@@ -1091,30 +1207,55 @@ def evaluation_phase(train_gan, train_stylegan2, per_step, flagship):
     for s in cond["saves"]:
         log(f"  step {s['step']}: ckpt/{s['name']}.pt {s['bytes'] / 2**20:.2f}"
             f" MiB written in {s['seconds']:.3f} s")
-    if [s["name"] for s in cond["saves"]] != ["latest", "latest", "step_6"]:
+    cond_fid = check_fid_run(cond, (3, 6), "conditional flagship")
+    if [s["name"] for s in cond["saves"]] != expected_saves(
+            cond["history"].evals, 6):
         raise AssertionError(f"checkpoints written: {cond['saves']}")
     logdir = cond["logdir"]
     resume_argv, _ = cli_argv(FLAGSHIP_COND + ["--resume", logdir],
-                              EVAL_DATA, 8)
+                              EVAL_DATA, 9)
     if restored_equals_saved(train_gan, resume_argv, logdir, "step_6") != 7:
         raise AssertionError("the resumed run would not start at step 7")
     resumed = run_cli(train_gan.main, FLAGSHIP_COND + ["--resume", logdir],
-                      EVAL_DATA, 8)
+                      EVAL_DATA, 9)
     steps = [r["step"] for r in resumed["history"]]
-    if steps != [7, 8] or resumed["logdir"] != logdir:
+    if steps != [7, 8, 9] or resumed["logdir"] != logdir:
         raise AssertionError(f"the resumed run took steps {steps}")
     expect_launches(resumed, 0, "the resumed flagship")
-    log(f"  resumed from ckpt/step_6.pt: steps {steps}")
+    resumed_fid = check_fid_run(resumed, (3, 6, 9),
+                                "conditional flagship, resumed")
+    (ev,) = resumed["history"].evals
+    restored = (f"Eval state restored (eval_seed {cond_fid['eval_seed']}, "
+                f"FID best {min(cond_fid['means']):.2f})")
+    if restored not in Path(logdir, "log.txt").read_text() or \
+            ev["fid_best"] != min(resumed_fid["means"]):
+        raise AssertionError("the resumed run did not restore the FID "
+                             "history, best and eval_seed")
+    log(f"  resumed from ckpt/step_6.pt: steps {steps}; {restored}; the CSV "
+        f"appended under the same eval_seed")
+    if EVAL_LAUNCHES != [0, 0, 0]:
+        raise AssertionError(f"blur launches in the flagship's evaluations: "
+                             f"{EVAL_LAUNCHES}")
 
     sndcgan = evaluate_run("sndcgan", logdir, per_step, probe_epochs=2,
                            cddls_steps=20, cddls_samples=5000,
                            cddls_batch=CDDLS_BATCH, use_ema=False)
-    phase(f"  the 32x32 StyleGAN2 run: {STEPS} steps, then its evaluation")
-    sg2_run = run_cli(train_stylegan2.main,
-                      RECIPE + ["--evaluate_every", str(STEPS)], EVAL_DATA,
-                      STEPS, BATCH)
-    expect_launches(sg2_run, STEPS * per_step["stylegan2_32"],
-                    "the 32x32 path")
+    phase(f"  the 32x32 StyleGAN2 run: {STEPS} steps evaluating at 3 and "
+          f"6, then its evaluation CLIs")
+    EVAL_LAUNCHES.clear()
+    sg2_run = run_cli(train_stylegan2.main, SG2_EVAL, EVAL_DATA, STEPS, BATCH)
+    per_eval = (FID_AVG * -(-FID_SIZE // FID_CHUNK) * per_step["fid_32"]
+                + per_step["gif_32"])
+    if EVAL_LAUNCHES != [per_eval, per_eval]:
+        raise AssertionError(f"blur launches in the evaluations: "
+                             f"{EVAL_LAUNCHES}, not {per_eval} each as phase "
+                             f"3 counts")
+    expect_launches(sg2_run, STEPS * per_step["stylegan2_32"]
+                    + 2 * per_eval, "the 32x32 path with its evaluations")
+    sg2_fid = check_fid_run(sg2_run, (3, 6), "32x32 StyleGAN2 (EMA G)")
+    log(f"  blur launches per evaluation: {EVAL_LAUNCHES} ({FID_AVG} trials x"
+        f" {-(-FID_SIZE // FID_CHUNK)} chunks x {per_step['fid_32']}, + "
+        f"{per_step['gif_32']} for the GIF frame)")
     sg2 = evaluate_run("stylegan2", sg2_run["logdir"], per_step,
                        probe_epochs=1, cddls_steps=10, cddls_samples=1000,
                        cddls_batch=CDDLS_BATCH_SG2, use_ema=True)
@@ -1129,8 +1270,11 @@ def evaluation_phase(train_gan, train_stylegan2, per_step, flagship):
     seconds = time.perf_counter() - t8
     log(f"  phase 8: {seconds:.1f} s")
     launches = {
-        "sndcgan conditional (phase 8, 6 + 2 steps)":
+        "sndcgan conditional with FID (phase 8, 6 + 3 steps, 3 evaluations)":
             cond["launches"] + resumed["launches"],
+        "stylegan2_32 with FID (phase 8, 6 steps, 2 evaluations)":
+            sg2_run["launches"],
+        "stylegan2_32 FID + GIF per evaluation (phase 8)": per_eval,
         "sndcgan probe, sampling, cDDLS (phase 8)": sum(
             sndcgan[k] for k in ("probe_launches", "sample_launches",
                                  "cddls_launches")),
@@ -1141,8 +1285,165 @@ def evaluation_phase(train_gan, train_stylegan2, per_step, flagship):
             sg2["cddls_launches"]}
     return dict(conditional=cond, resumed=resumed, sndcgan=sndcgan,
                 stylegan2_run=sg2_run, stylegan2=sg2,
+                fid=dict(conditional=resumed_fid, stylegan2_32=sg2_fid,
+                         blur_launches_per_evaluation=per_eval),
                 card_vs_cpu=dict(conditional_step=cond_err, **eval_err),
                 seconds=seconds, launches=launches)
+
+
+# ------------------------------------------------------- the Inception net
+
+INCEPTION_BATCH = 500
+
+
+def inception_weights(seed: int = 0):
+    """Random, batch-norm-realistic weights of the FID InceptionV3 from a
+    numpy seed, under the checkpoint's names (as in
+    ``tests/test_torch_port_inception.py``)."""
+    import numpy as np
+    import torch
+
+    from contrad_tpu_torch.evaluate.inception import InceptionV3FID
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, t in InceptionV3FID().state_dict().items():
+        shape = tuple(t.shape)
+        if ".conv." in name:
+            v = rng.normal(0.0, 0.05, shape)
+        elif ".bn." in name and name.endswith(("weight", "running_var")):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name == "fc.weight":
+            v = rng.normal(0.0, 0.02, shape)
+        else:
+            v = rng.normal(0.0, 0.1, shape)
+        out[name] = torch.from_numpy(v.astype(np.float32))
+    return out
+
+
+def conv_flops(model, size: int) -> float:
+    """Multiply-adds x 2 of the convolutions and the fc of one image of
+    ``size`` x ``size`` (the resize and the pools not counted)."""
+    import torch
+
+    flops = []
+
+    def hook(module, inputs, out):
+        if isinstance(module, torch.nn.Conv2d):
+            k = module.in_channels * module.kernel_size[0] * \
+                module.kernel_size[1] // module.groups
+            flops.append(2.0 * k * out.numel())
+        else:
+            flops.append(2.0 * module.in_features * out.numel())
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.zeros(1, size, size, 3,
+                          device=next(model.parameters()).device))
+    for h in hooks:
+        h.remove()
+    return sum(flops)
+
+
+def inception_variants(state, flops: float):
+    """The batch-500 forward on 32x32 inputs in other settings than the
+    port's (channels-last, TF32 convolutions, cuDNN's heuristics): TF32
+    off; NCHW-contiguous activations and weights; cuDNN's autotuner
+    (``cudnn.benchmark``). Yardsticks for where the time goes; the port
+    uses none of them. Returns ms by variant."""
+    import torch
+
+    from contrad_tpu_torch.evaluate.inception import from_state_dict
+
+    cudnn, out = torch.backends.cudnn, {}
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.rand(INCEPTION_BATCH, 32, 32, 3, device="cuda", generator=gen)
+    nchw = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    channels_last = from_state_dict(state, "cuda")
+    plain = from_state_dict(state, "cuda").to(
+        memory_format=torch.contiguous_format)  # Module.to works in place
+    for name, model, inputs, tf32, bench in (
+            ("TF32 off", channels_last, x, False, False),
+            ("NCHW, TF32", plain, nchw, True, False),
+            ("cudnn.benchmark, TF32", channels_last, x, True, True)):
+        cudnn.allow_tf32, cudnn.benchmark = tf32, bench
+        with torch.no_grad():
+            out[name] = cuda_ms(lambda x: model(x), [inputs], iters=10)
+        rate = flops * INCEPTION_BATCH / (out[name] * 1e-3) / 1e12
+        log(f"  inception forward, batch {INCEPTION_BATCH} of 32x32, "
+            f"{name}: {out[name]:.3f} ms, {rate:.1f} TFLOP/s")
+    cudnn.allow_tf32, cudnn.benchmark = True, False
+    return out
+
+
+def inception_phase(sample_dir: str):
+    """Phase 9: the InceptionV3 on the card against the CPU (TF32 off) at
+    batch 2 on 32x32, 299x299 and 512x512 inputs, pool3 and logits; its
+    forward timed at batch 500 on 32x32 and 512x512 inputs with TF32 convs
+    as in training, beside other settings, and profiled; ``test_fid_is``
+    with the moments embedder on phase 8's samples. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from contrad_tpu_torch import test_fid_is
+    from contrad_tpu_torch.evaluate.inception import from_state_dict
+
+    t9 = time.perf_counter()
+    phase("[9] the InceptionV3 (random weights): card against CPU, its "
+          "forward's time, and test_fid_is on phase 8's samples")
+    state = inception_weights()
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, card = from_state_dict(state, "cpu"), from_state_dict(state, "cuda")
+    rng = np.random.default_rng(9)
+    errs = {}
+    for size in (32, 299, 512):
+        x = torch.from_numpy(rng.uniform(size=(2, size, size, 3)).astype(
+            np.float32))
+        with torch.no_grad():
+            want, got = cpu(x), card(x.cuda())
+        for name, g, w in zip(("pool3", "logits"), got, want):
+            errs[f"{name} {size}"] = _check_close(
+                f"inception {name} at {size}x{size}", g, w)
+    del cpu
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    timing = {}
+    flops = conv_flops(card, 299)
+    for size in (32, 512):
+        gen = torch.Generator(device="cuda").manual_seed(size)
+        x = torch.rand(INCEPTION_BATCH, size, size, 3, device="cuda",
+                       generator=gen)
+        with torch.no_grad():
+            ms = cuda_ms(lambda x: card(x), [x], iters=10)
+        timing[size] = dict(ms=ms, img_per_s=INCEPTION_BATCH / (ms * 1e-3),
+                            tflop_per_s=flops * INCEPTION_BATCH / (ms * 1e-3)
+                            / 1e12)
+        log(f"  inception forward, batch {INCEPTION_BATCH} of {size}x{size}: "
+            f"{ms:.3f} ms, {timing[size]['img_per_s']:.1f} img/s, "
+            f"{timing[size]['tflop_per_s']:.1f} TFLOP/s of "
+            f"{flops / 1e9:.3f} GFLOP an image (convs and fc at 299x299)")
+        del x
+    timing["variants_32"] = inception_variants(state, flops)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.rand(INCEPTION_BATCH, 32, 32, 3, device="cuda", generator=gen)
+    log("  the batch-500 forward on 32x32 inputs under the profiler:")
+    with torch.no_grad():
+        timing["profile_32"] = class_report(*profile_rows(lambda: card(x), 2))
+    del x
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scored = test_fid_is.main([sample_dir, "--embed", "moments", "--dataset",
+                               EVAL_DATA, "--no_is"])
+    score_s = time.perf_counter() - t0
+    if scored["n_images"] != 1000 or not math.isfinite(scored["fid"]):
+        raise AssertionError(f"test_fid_is: {scored}")
+    log(f"  test_fid_is --embed moments on {scored['n_images']} samples: "
+        f"FID {scored['fid']:.6g} in {score_s:.2f} s")
+    seconds = time.perf_counter() - t9
+    log(f"  phase 9: {seconds:.1f} s")
+    return dict(card_vs_cpu=errs, gflop_per_image=flops / 1e9,
+                forward=timing, test_fid_is=dict(scored, seconds=score_s),
+                seconds=seconds)
 
 
 # ------------------------------------------------------------------ main
@@ -1182,7 +1483,7 @@ def main() -> int:
     cases = blur_cases() + eval_blur_cases()
     paths = ("stylegan2_32", "stylegan2_512", "stylegan2_512_r1",
              "lineval_32", "lineval_32_tail", "cddls_32", "cddls_32_final",
-             "sample_32")
+             "sample_32", "fid_32", "gif_32")
     per_step = {path: per_step_launches(cases, path) for path in paths}
     phase(f"[3] blur kernel vs plain version at {len(cases)} cases; launches "
           f"per step (train paths) or per call (evaluation paths): {per_step}")
@@ -1207,7 +1508,11 @@ def main() -> int:
     global LOG_ROOT
     logs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
     LOG_ROOT = logs.name
+    from contrad_tpu_torch.evaluate import fid
+
+    fid.STATS_DIR = os.path.join(LOG_ROOT, "fid_stats")  # made in this run
     share_datasets()
+    count_evaluation_launches()
     phase(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
           f"ContraD recipe, batch {BATCH}")
     run = run_cli(train_stylegan2.main, RECIPE, "synthetic_32", STEPS, BATCH)
@@ -1277,6 +1582,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase8 = evaluation_phase(train_gan, train_stylegan2, per_step, flagship)
+    phase9 = inception_phase(phase8["stylegan2"]["sample_dir"])
     logs.cleanup()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
@@ -1314,8 +1620,8 @@ def main() -> int:
                          tf32="convs on, matmuls off (card vs CPU: off)"),
             stylegan2_512=dict(train=run512, profile=prof512,
                                card_vs_cpu=check512),
-            evaluation=phase8),
-            indent=1))
+            evaluation=phase8, inception=phase9),
+            indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,11 @@ trees, which share the parameters' structure. Rules:
     noise scalars keep their NHWC shapes: the StyleGAN2 port is NHWC inside.
 The StyleGAN2 upsampling ModulatedConv's kernel is converted like any conv;
 that port flips it at run time.
+
+:func:`inception_state_from_jax` is the inverse of the JAX package's
+``convert_torch_checkpoint`` for the FID InceptionV3: flax variables
+(``params`` and ``batch_stats``) -> the checkpoint's keys, which the port's
+``InceptionV3FID`` loads.
 """
 
 from __future__ import annotations
@@ -79,4 +84,28 @@ def torch_state_dict(jax_params: Mapping, jax_state: Optional[Mapping] = None
             dtype = np.result_type(value.dtype, np.float32)  # float64 stays
             out[".".join(names + [leaf])] = torch.from_numpy(
                 np.array(value, dtype=dtype))  # a writable, contiguous copy
+    return out
+
+
+def inception_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax InceptionV3FID variables -> the ``pt_inception`` checkpoint's
+    ``state_dict``: conv ``kernel`` HWIO -> ``weight`` OIHW; batch norm
+    ``scale``, ``bias``, ``mean``, ``var`` -> ``weight``, ``bias``,
+    ``running_mean``, ``running_var``; the fc's (in, out) ``kernel`` ->
+    (out, in) ``weight``. Module names are kept."""
+    bn = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+          "var": "running_var"}
+    out = {}
+    for tree in (variables["params"], variables.get("batch_stats", {})):
+        for path, value in _flatten(tree).items():
+            *names, leaf = path
+            if names[-1] == "conv":
+                leaf, value = "weight", value.transpose(3, 2, 0, 1)
+            elif names[-1] == "bn":
+                leaf = bn[leaf]
+            elif leaf == "kernel":  # fc
+                leaf, value = "weight", value.T
+            dtype = np.result_type(value.dtype, np.float32)
+            out[".".join(names + [leaf])] = torch.from_numpy(
+                np.array(value, dtype=dtype))
     return out

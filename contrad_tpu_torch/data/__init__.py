@@ -4,7 +4,8 @@
 
 ``get_dataset(name)`` -> ``(train, test, image_size)`` as uint8 NHWC
 :class:`ArrayDataset`s; ``get_image_size(name)`` gives the image shape
-without loading anything. ``$DATA_DIR`` points at the data root. A
+without loading anything; ``get_dataset_ref(name)`` is the split FID's
+reference statistics are taken on. ``$DATA_DIR`` points at the data root. A
 dataset's ``train_aug`` names the augmentation the reference baked into its
 transforms (``hflip`` for the ``_hflip`` variants and AFHQ, ``lin`` for the
 linear probe's ``_lin`` variants: RRC(0.2, 1) + flip); the trainers and the
@@ -90,6 +91,18 @@ def get_dataset(dataset: str, data_path: Optional[str] = None) -> Entry:
     raise NotImplementedError(f"unknown dataset: {dataset}")
 
 
+def get_dataset_ref(dataset: str, data_path: Optional[str] = None
+                    ) -> ArrayDataset:
+    """The FID reference split (reference ``datasets.py:129-164``): the test
+    split of ``cifar*``, ``celeba128`` and ``synthetic*``, the train split
+    of ``afhq_*``."""
+    if dataset.startswith(("cifar", "synthetic")) or dataset == "celeba128":
+        return get_dataset(dataset, data_path)[1]
+    if dataset.startswith("afhq_"):
+        return get_dataset(dataset, data_path)[0]
+    raise NotImplementedError(f"unknown dataset: {dataset}")
+
+
 __all__ = ["ArrayDataset", "DeviceBatchIterator", "get_dataset",
-           "get_image_size", "load_image_folder", "synthetic_dataset",
-           "DATA_PATH"]
+           "get_dataset_ref", "get_image_size", "load_image_folder",
+           "synthetic_dataset", "DATA_PATH"]

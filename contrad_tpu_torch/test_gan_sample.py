@@ -26,7 +26,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--n_samples", default=10000, type=int)
     p.add_argument("--batch_size", default=500, type=int)
     p.add_argument("--ckpt", default="latest", type=str,
-                   help="latest | step_N")
+                   help="latest | best | step_N")
     p.add_argument("--use_ema", action="store_true",
                    help="sample from the EMA generator (StyleGAN2 runs)")
     p.add_argument("--seed", default=0, type=int)

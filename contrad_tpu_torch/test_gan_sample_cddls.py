@@ -2,7 +2,7 @@
 (the counterpart of the repo root's ``test_gan_sample_cddls.py``).
 
     python -m contrad_tpu_torch.test_gan_sample_cddls <logdir> \\
-        <logdir>/lin_eval_<tag>.npz sndcgan --ckpt latest
+        <logdir>/lin_eval_<tag>.npz sndcgan [--ckpt best]
 
 Energy ``E(z, z2) = sum(-(D(G(z) + eps z2) + lbd * logit_y) + 0.5 |z2|^2)``
 with ``logit_y`` the linear probe's (``lin_eval_*.npz`` of
@@ -14,9 +14,11 @@ StyleGAN2 G draws fresh noise maps at every step. The chain is one loop on
 the device with ``torch.autograd.grad`` on ``(z, z2)`` and no host
 synchronisation inside it. Samples go to
 ``<logdir>/samples_cDDLS_<rand>/<class>/<index>.png``,
-``n_samples // n_classes`` per class. ``--ckpt`` defaults to ``latest``:
-the port writes no ``best`` (chosen by FID, not ported). It runs on the
-card; ``--device cpu`` runs it on the CPU.
+``n_samples // n_classes`` per class. ``--ckpt`` defaults to ``best``,
+the checkpoint of the best FID, as in the JAX CLI; a run that wrote none
+(FID off) is refused with ``FileNotFoundError`` unless another ``--ckpt``
+(``latest``, ``step_N``) is named. It runs on the card; ``--device cpu``
+runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--n_samples", default=10000, type=int)
     p.add_argument("--n_classes", default=10, type=int)
     p.add_argument("--batch_size", default=500, type=int)
-    p.add_argument("--ckpt", default="latest", type=str)
+    p.add_argument("--ckpt", default="best", type=str,
+                   help="best | latest | step_N")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)

@@ -9,15 +9,20 @@ It reads the same TOML configs, prints and logs the same scalar names
 (``D_loss``, ``D_penalty``, ``D_real``, ``D_gen``, ``G_loss``) and writes
 the same run directory, ``<logdir_root>/gan/<config stem>/<architecture>/
 <run name>/<rand>/`` with ``config.toml`` (the effective config),
-``log.txt``, ``scalars.jsonl`` and ``ckpt/``: ``latest.pt`` at every
-``--evaluate_every`` steps, ``step_<N>.pt`` where such a step is a multiple
-of ``--save_every``. ``--resume <logdir>`` continues a run from its newest
-completed checkpoint (the same command line, ``options.max_steps`` raised);
+``log.txt``, ``scalars.jsonl`` and ``ckpt/``. Every ``--evaluate_every``
+steps it evaluates as the JAX CLI does (``utils/run.py``): FID with
+``--fid_embed`` (``--n_eval_avg`` trials; ``--no_fid`` skips it) into
+``results_fid_<eval_seed>.csv``, a frame of ``training_progress_
+<eval_seed>.gif`` (``--no_gif`` skips it), ``ckpt/latest.pt``,
+``ckpt/best.pt`` at the best FID, ``ckpt/step_<N>.pt`` where the step is a
+multiple of ``--save_every``, and ``eval_state.npz``. ``--resume <logdir>``
+continues a run from its newest completed checkpoint and its evaluation
+state (the same command line, ``options.max_steps`` raised);
 ``--finetune <logdir>`` starts D from another run's, its GAN head fresh.
 ``--conditional`` trains a class-conditional D (projection discrimination)
-on a labelled dataset. It runs on the card; ``--device cpu`` runs it on the
-CPU. FID, the progress GIF, ``--dtype bf16`` and multi-step dispatch are not
-ported yet (``--no_fid``, ``--no_gif`` and ``--n_eval_avg`` are accepted).
+on a labelled dataset. Any architecture of the registry runs, StyleGAN2's
+included, as in the JAX CLI. It runs on the card; ``--device cpu`` runs it
+on the CPU. ``--dtype bf16`` and multi-step dispatch are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from contrad_tpu_torch.utils.run import History, add_run_args
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="GAN training on PyTorch")
     p.add_argument("config", type=str)
-    p.add_argument("architecture", type=str, help="sndcgan")
+    p.add_argument("architecture", type=str,
+                   help="sndcgan | snresnet18 | stylegan2 | stylegan2_512 | "
+                        "stylegan2_tiny")
     p.add_argument("--mode", default="std", type=str,
                    help="std | aug | aug_both | simclr_only | contrad")
     p.add_argument("--penalty", default="none", type=str,
@@ -63,10 +70,6 @@ def build(P: argparse.Namespace):
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import GANTrainer, ScheduledAdam
 
-    if P.architecture not in ("sndcgan", "snresnet18"):
-        raise NotImplementedError(
-            f"train_gan runs sndcgan and snresnet18; {P.architecture!r} is "
-            f"not ported to it yet")
     device = resolve_device(P.device)
     cfg = finalize_options(load_config(default_config_files(P.config),
                                        P.override))
@@ -115,10 +118,10 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     logger = run.open_run(
         P, cfg, run_filename(P.mode, P.penalty, P.aug, P.temp, P.lbd_a),
         f"gan/{Path(P.config).stem}/{P.architecture}")
-    first = run.restore(P, trainer, loader, logger)
+    evaluation = run.Evaluation(P, opt, trainer, logger, use_ema=False)
+    first = run.restore(P, trainer, loader, logger, evaluation)
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
     run.log_start(logger, trainer, opt, first)
-    logger.log(run.not_ported_note(P))
 
     history = History(logger.logdir)
     sync = run.cuda_sync(trainer.device)
@@ -128,7 +131,8 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
             images, labels = next(loader)
             metrics = trainer.train_step(images, labels=labels)
         else:
-            metrics = trainer.train_step(next(loader))
+            images = next(loader)
+            metrics = trainer.train_step(images)
         steps += 1
         if step % P.print_every == 0:
             m = {k: float(v) for k, v in metrics.items()}  # waits for the step
@@ -143,7 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
             history.append(dict(m, step=step, seconds_per_step=dt / steps))
             t0, steps = time.perf_counter(), 0
         if step % P.evaluate_every == 0:
-            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta)
+            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta,
+                               evaluation, images)
     logger.log("Training finished.")
     logger.close()
     return history

@@ -10,14 +10,13 @@ It reads the same TOML configs, prints and logs the same scalar names
 (``D_loss``, ``D_penalty``, ``D_real``, ``D_gen``, ``D_r1``, ``G_loss``) and
 writes the same run directory as the JAX CLI,
 ``<logdir_root>/gan_dp/st_<config stem>/<architecture>/<run name>/<rand>/``
-(``config.toml``, ``log.txt``, ``scalars.jsonl``, ``ckpt/``), with
+(``config.toml``, ``log.txt``, ``scalars.jsonl``, ``ckpt/``), with the
+evaluation (FID of the EMA G, the progress GIF, ``ckpt/best``),
 ``--evaluate_every``, ``--save_every``, ``--resume`` and ``--finetune`` as
-``train_gan``'s. It runs on the card; ``--device cpu`` runs it on the CPU.
-FID and the progress GIF are not ported yet: an evaluation saves the
-checkpoints only, which the run says at its start (``--n_eval_avg``,
-``--no_fid`` and ``--no_gif`` are accepted so that the JAX package's command
-lines parse). The port has no packed layouts, so it takes no
-``--no_packed_aug``.
+``train_gan``'s. ``--penalty`` (``gp``, ``cr``, ``bcr``) adds a D penalty
+to the first critic sub-step, with the config's ``lbd`` and ``lbd2``. It
+runs on the card; ``--device cpu`` runs it on the CPU. The port has no
+packed layouts, so it takes no ``--no_packed_aug``.
 """
 
 from __future__ import annotations
@@ -38,6 +37,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("architecture", type=str,
                    help="stylegan2 | stylegan2_512 | stylegan2_tiny")
     p.add_argument("--mode", default="contrad", type=str)
+    p.add_argument("--penalty", default="none", type=str,
+                   help="none | gp | cr | bcr")
     p.add_argument("--aug", default="none", type=str)
     p.add_argument("--use_warmup", action="store_true")
     p.add_argument("--temp", default=0.1, type=float)
@@ -99,7 +100,8 @@ def build(P: argparse.Namespace):
         augment=get_augment(P.aug, cfg.get("augment")),
         g_optimizer=adam(generator, opt.lr),
         d_optimizer=adam(discriminator, opt.lr_d),
-        loss_type=opt.loss, temp=P.temp, lbd_a=P.lbd_a, lbd_r1=P.lbd_r1,
+        loss_type=opt.loss, penalty=P.penalty, temp=P.temp, lbd_a=P.lbd_a,
+        lbd=opt.lbd, lbd2=opt.lbd2, lbd_r1=P.lbd_r1,
         d_reg_every=P.d_reg_every, style_mix=P.style_mix,
         n_critic=opt.n_critic,
         real_augment=(get_augment("hflip") if train_set.train_aug == "hflip"
@@ -126,14 +128,15 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     if P.halflife_lr > 0:
         desc += f"_lr{P.halflife_lr / 1e6:.1f}M"
     desc += "_NoLazy" if P.no_lazy else "_Lazy"
+    name = run_filename(P.mode, P.penalty, P.aug, P.temp, P.lbd_a)
     logger = run.open_run(
-        P, cfg, f"{run_filename(P.mode, 'none', P.aug, P.temp, P.lbd_a)}_"
-                f"{desc}", f"gan_dp/st_{Path(P.config).stem}/{P.architecture}")
-    first = run.restore(P, trainer, loader, logger)
+        P, cfg, f"{name}_{desc}",
+        f"gan_dp/st_{Path(P.config).stem}/{P.architecture}")
+    evaluation = run.Evaluation(P, opt, trainer, logger, use_ema=True)
+    first = run.restore(P, trainer, loader, logger, evaluation)
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
     run.log_start(logger, trainer, opt, first)
     logger.log(f"Use G moving average: {accum}")
-    logger.log(run.not_ported_note(P))
 
     history = History(logger.logdir)
     sync = run.cuda_sync(trainer.device)
@@ -141,9 +144,9 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     for step in range(first, opt.max_steps + 1):
         do_r1 = step % P.d_reg_every == 0 and P.lbd_r1 > 0
         do_ema = step * opt.batch_size > P.ema_start_k * 1000
-        metrics = trainer.train_step(next(loader),
-                                     ema_decay=accum if do_ema else 0.0,
-                                     do_r1=do_r1)
+        images = next(loader)
+        metrics = trainer.train_step(
+            images, ema_decay=accum if do_ema else 0.0, do_r1=do_r1)
         steps += 1
         if step % P.print_every == 0:
             m = {k: float(v) for k, v in metrics.items()}  # waits for the step
@@ -158,7 +161,8 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
             history.append(dict(m, step=step, seconds_per_step=dt / steps))
             t0, steps = time.perf_counter(), 0
         if step % P.evaluate_every == 0:
-            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta)
+            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta,
+                               evaluation, images)
     if trainer.device.type == "cuda":
         logger.log(f"peak device memory: "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

@@ -11,6 +11,9 @@
      mode there, so its ``u`` advances again;
   3. optionally (``ema``) an EMA of G's parameters after the update, its
      buffers copied.
+With a StyleGAN2 G (``train_gan`` on a ``stylegan2*`` architecture) each G
+forward draws its noise maps and its style mixing, as the JAX trainer's G
+does with its default probability of 0.9.
 
 :class:`StyleGAN2Trainer`, ``train_stylegan2.py``'s (reference
 ``train_stylegan2.py:163-229``):
@@ -18,8 +21,9 @@
   2. the G phase first: fresh z, noise and style mixing, augmented fakes,
      the mode's G loss, one Adam update of G;
   3. the D phase on the G phase's (detached, pre-update) fakes: the mode's D
-     loss plus, when ``do_r1``, the R1 penalty on augmented detached reals
-     scaled by ``0.5 * lbd_r1 * d_reg_every``; one Adam update of D;
+     loss with its penalty (``gp``, ``cr``, ``bcr``) plus, when ``do_r1``,
+     the R1 penalty on augmented detached reals scaled by
+     ``0.5 * lbd_r1 * d_reg_every``; one Adam update of D;
   4. ``n_critic - 1`` more D sub-steps as in :class:`GANTrainer`.
 R1 is a gradient of a gradient through D, so the blur kernel's
 ``autograd.Function`` runs forward, backward and double backward there.
@@ -47,6 +51,7 @@ import torch
 
 from contrad_tpu_torch import at_least_f32
 from contrad_tpu_torch.augment import AugRng
+from contrad_tpu_torch.models.stylegan2 import GStylegan2
 from contrad_tpu_torch.ops.spectral_norm import commit_u
 from contrad_tpu_torch.training.modes import Draws, ModeCtx, draw_d, get_mode
 from contrad_tpu_torch.training.state import ScheduledAdam, ema_update
@@ -107,6 +112,9 @@ class GANTrainer:
         self.rng = AugRng.from_seed(seed, self.device)
         self.n_classes = discriminator.n_classes
         self.conditional = self.n_classes > 1
+        # a StyleGAN2 G's mixing probability where the JAX trainer passes
+        # none: its G's default (models/stylegan2/generator.py:343)
+        self.style_mix = 0.9
 
     # ------------------------------------------------------------- state
 
@@ -136,8 +144,15 @@ class GANTrainer:
     # ------------------------------------------------------------- draws
 
     def draw_g(self, n: int) -> Dict[str, Any]:
-        """The draws of one G forward: the latents."""
-        return {"z": self.generator.sample_latent(n, self.rng.device)}
+        """The draws of one G forward: the latents and, for a StyleGAN2 G,
+        its per-layer noise and style-mixing draws."""
+        g, G = self.rng.device, self.generator
+        if not isinstance(G, GStylegan2):
+            return {"z": G.sample_latent(n, g)}
+        return {"z": G.sample_latent(n, g),
+                "noise": G.draw_noise(n, g, self.device),
+                "mixing": (G.draw_mixing(n, self.style_mix, g, self.device)
+                           if self.style_mix > 0 else None)}
 
     def draw_aug(self, shape):
         return self.ctx.augment.sample(tuple(shape), self.rng)
@@ -230,14 +245,15 @@ class StyleGAN2Trainer(GANTrainer):
 
     def __init__(self, generator, discriminator, mode: str, augment,
                  g_optimizer: ScheduledAdam, d_optimizer: ScheduledAdam,
-                 loss_type: str, temp: float = 0.1, lbd_a: float = 1.0,
+                 loss_type: str, penalty: str = "none", temp: float = 0.1,
+                 lbd_a: float = 1.0, lbd: float = 10.0, lbd2: float = 10.0,
                  lbd_r1: float = 10.0, d_reg_every: int = 16,
                  style_mix: float = 0.9, n_critic: int = 1,
                  real_augment=None, seed: int = 0):
         super().__init__(generator, discriminator, mode, augment, g_optimizer,
-                         d_optimizer, loss_type, temp=temp, lbd_a=lbd_a,
-                         n_critic=n_critic, ema=True,
-                         real_augment=real_augment, seed=seed)
+                         d_optimizer, loss_type, penalty=penalty, temp=temp,
+                         lbd_a=lbd_a, lbd=lbd, lbd2=lbd2, n_critic=n_critic,
+                         ema=True, real_augment=real_augment, seed=seed)
         if self.conditional:
             raise NotImplementedError(
                 "the StyleGAN2 trainer is unconditional, as in the JAX "
@@ -245,17 +261,6 @@ class StyleGAN2Trainer(GANTrainer):
         self.lbd_r1 = lbd_r1
         self.d_reg_every = d_reg_every
         self.style_mix = style_mix
-
-    # ------------------------------------------------------------- draws
-
-    def draw_g(self, n: int) -> Dict[str, Any]:
-        """z, per-layer noise and style-mixing draws for one G forward."""
-        g, dev = self.rng.device, self.device
-        G = self.generator
-        return {"z": torch.randn(n, G.style_dim, generator=g, device=dev),
-                "noise": G.draw_noise(n, g, dev),
-                "mixing": (G.draw_mixing(n, self.style_mix, g, dev)
-                           if self.style_mix > 0 else None)}
 
     # ------------------------------------------------------------- phases
 
@@ -276,13 +281,14 @@ class StyleGAN2Trainer(GANTrainer):
         (grads,) = torch.autograd.grad(d.sum(), x, create_graph=True)
         return at_least_f32(grads).reshape(x.shape[0], -1).pow(2).sum(dim=1).mean()
 
-    def d_loss(self, images, gen_images, aug_params,
+    def d_loss(self, images, gen_images, draws: Draws,
                r1_aug_params: Optional[Any] = None
                ) -> Tuple[torch.Tensor, Metrics]:
-        """D-phase loss (``aug_params``: the mode's augmentation of the D
-        batch); with ``r1_aug_params`` the R1 penalty is added."""
+        """D-phase loss with its penalty (``draws``: the mode's augmentation
+        of the D batch and the penalty's draws); with ``r1_aug_params`` the
+        R1 penalty is added."""
         total, metrics = self.loss_D(self.ctx, self.discriminator, images,
-                                     gen_images.detach(), Draws(aug_params))
+                                     gen_images.detach(), draws)
         if r1_aug_params is not None:
             r1 = self.r1(images, r1_aug_params)
             total = total + (0.5 * self.lbd_r1) * r1 * self.d_reg_every
@@ -327,7 +333,7 @@ class StyleGAN2Trainer(GANTrainer):
         # 3. D phase on the G phase's fakes
         (_, d_draws), *others = draws.critic
         total, metrics = self.d_loss(batches[0], gen_images.detach(),
-                                     d_draws.aug, draws.r1)
+                                     d_draws, draws.r1)
         self.d_tx.step(_grads(total, self.discriminator))
         commit_u(self.discriminator)
 

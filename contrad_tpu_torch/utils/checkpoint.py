@@ -10,6 +10,7 @@ and number of classes), so that an evaluation CLI can rebuild its models.
 Names:
 
   ckpt/latest.pt   - written at every evaluation (``--evaluate_every``)
+  ckpt/best.pt     - written at an evaluation with the best FID so far
   ckpt/step_N.pt   - kept copies, every ``--save_every`` steps
 
 A checkpoint is written under a temporary name in the same directory and

@@ -8,10 +8,12 @@ A run writes into ``<root>/<subdir>/<run name>/<rand>``, the train CLIs'
 names such as ``gan/train/G_loss``) and, where ``tensorboardX`` imports,
 TensorBoard events under the same tags. Without it the logger says so once
 in ``log.txt``. ``resume=`` reuses an existing directory.
+:func:`append_csv` keeps a CSV such as the FID results, one row per call.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import sys
@@ -81,3 +83,14 @@ class Logger:
             self._writer.close()
         self.log_file.close()
 
+
+
+def append_csv(path: str, header, row) -> None:
+    """Append ``row`` to the CSV at ``path``, writing ``header`` first where
+    the file is new (reference ``evaluate/gan.py:147-159``)."""
+    exists = os.path.exists(path)
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if not exists:
+            w.writerow(header)
+        w.writerow(row)

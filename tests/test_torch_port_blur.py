@@ -274,14 +274,16 @@ def test_evaluation_path_cases_are_what_the_models_launch(monkeypatch):
     32x32 StyleGAN2 G and D (full width, on the CPU, small batches) make
     on each evaluation path: a probe step's features and a shorter test
     batch, a Langevin step (whose forward blurs all see inputs that need a
-    gradient, so each has an adjoint), a chain's final sample and a batch
-    of samples; each forward case once per call, and the adjoint rows the
+    gradient, so each has an adjoint), a chain's final sample, a batch of
+    samples, a chunk of the in-loop FID sampler and a frame of the progress
+    GIF; each forward case once per call, and the adjoint rows the
     Langevin step's forward calls give by the rule of ``blur_cases``. Every
     case takes the vector path in float32 and bfloat16."""
     from collections import Counter
 
     import contrad_tpu_torch.models.stylegan2.layers as layers
     from chip_smoke import eval_blur_cases
+    from contrad_tpu_torch.evaluate.sharded import make_feature_sampler
     from contrad_tpu_torch.models import generate, get_architecture
     from contrad_tpu_torch.test_gan_sample_cddls import langevin_step
     from contrad_tpu_torch.test_lineval import features
@@ -315,9 +317,13 @@ def test_evaluation_path_cases_are_what_the_models_launch(monkeypatch):
     with torch.no_grad():
         record("cddls_32_final", lambda: generate(G, z, noise_rng=rng))
         record("sample_32", lambda: generate(G, z[:3], noise_rng=rng))
+        record("gif_32", lambda: generate(G, z[:2], noise_rng=rng))
+    trainer = type("T", (), dict(g_ema=G, device=torch.device("cpu")))
+    record("fid_32", lambda: make_feature_sampler(
+        trainer, "moments", batch_per_call=5, use_ema=True)(5, 0))
 
     cases = eval_blur_cases(probe_batch=4, probe_tail=2, cddls_batch=4,
-                            sample_batch=3)
+                            sample_batch=3, fid_batch=5, gif_batch=2)
     for path, got in recorded.items():
         want = Counter()
         for c in cases:

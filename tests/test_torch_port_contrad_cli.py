@@ -1,7 +1,7 @@
 """``python -m contrad_tpu_torch.train_stylegan2_contraD``, the port's CLI
 of the 512x512 recipe: the README's command line (the recipe's defaults,
-``simclr_hq``, the evaluation flags the port accepts and reports as not
-ported) runs two steps on the CPU at the ``stylegan2_tiny`` width on
+``simclr_hq``, the evaluation flags, with FID reported as disabled where
+the Inception weights are missing) runs two steps on the CPU at the ``stylegan2_tiny`` width on
 synthetic 32x32 data, the second with the lazy R1 (``--d_reg_every 2``),
 and prints finite losses; flags given explicitly win over the recipe's
 defaults."""
@@ -33,17 +33,17 @@ def test_recipe_defaults_fill_in_and_explicit_flags_win():
         "simclr", 0.1, ["a=1"], "contrad")
 
 
-def test_readme_command_runs_two_cpu_steps():
+def test_readme_command_runs_two_cpu_steps(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "contrad_tpu_torch.train_stylegan2_contraD",
          *README_FLAGS, "--d_reg_every", "2", "--device", "cpu",
          "--print_every", "1", "--override", "options.dataset=synthetic_32",
          "options.batch_size=4", "options.max_steps=2"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT)))
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT),
+                 INCEPTION_WEIGHTS=str(tmp_path / "missing.pth")))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "not ported: in-loop FID (--evaluate_every 5000, --n_eval_avg 1)" \
-        in out.stdout
+    assert "FID disabled: Inception FID weights not found" in out.stdout
     losses = [dict(re.findall(r"(\w+)=(\S+)", line))
               for line in out.stdout.splitlines() if "D_loss=" in line]
     assert len(losses) == 2

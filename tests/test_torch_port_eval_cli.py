@@ -97,8 +97,9 @@ def test_probe_sample_and_cddls_on_the_run(run):
         16, 16, 3)
 
     out = test_gan_sample_cddls.main([
-        logdir, probe["npz"], "sndcgan", "--n_steps", "2", "--n_samples", "7",
-        "--n_classes", "3", "--batch_size", "2", "--device", "cpu"])
+        logdir, probe["npz"], "sndcgan", "--ckpt", "latest", "--n_steps", "2",
+        "--n_samples", "7", "--n_classes", "3", "--batch_size", "2",
+        "--device", "cpu"])
     assert re.fullmatch(r"samples_cDDLS_\d+", os.path.basename(out["subdir"]))
     assert sorted(os.listdir(out["subdir"])) == ["0", "1", "2"]
     for y in range(3):  # n_samples // n_classes a class, numbered on

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port.
 
 * It stands alone: no module of ``contrad_tpu_torch/``, and not
-  ``chip_smoke.py``, imports ``jax``, ``flax``, ``optax`` or anything of
-  ``contrad_tpu`` (an AST scan of every file, dynamic imports included).
+  ``chip_smoke.py``, imports ``jax``, ``flax``, ``optax``, anything of
+  ``contrad_tpu``, or ``third_party`` (whose torch InceptionV3 the port
+  keeps a copy of) (an AST scan of every file, dynamic imports included).
 * Its entry points run on the card: without one they raise, unless the
   caller asks for ``device="cpu"``; the blur runs its plain version for CPU
   tensors only and refuses any other device.
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "contrad_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "contrad_tpu", "third_party"}
 
 
 def _port_files():
@@ -58,6 +59,7 @@ def test_port_imports_nothing_of_jax(path):
     ("def f():\n    import contrad_tpu.config", {"contrad_tpu"}),
     ("import importlib\nm = importlib.import_module('jax')", {"jax"}),
     ("m = __import__('contrad_tpu.data')", {"contrad_tpu"}),
+    ("from third_party.torch_fid import get_embed_fn", {"third_party"}),
     ("from contrad_tpu_torch.ops import blur", set()),
     ("from . import blur", set()),
 ])
@@ -144,6 +146,9 @@ def test_blur_refuses_devices_other_than_cuda_and_cpu():
     ("test_gan_sample", ["logs/none", "sndcgan"]),
     ("test_lineval", ["logs/none", "sndcgan"]),
     ("test_gan_sample_cddls", ["logs/none", "logs/none/lin.npz", "sndcgan"]),
+    ("test_fid_is", ["logs/none", "--dataset", "cifar10"]),
+    ("test_tf_inception", ["logs/none", "logs/none/stats.npz"]),
+    ("evaluate.fid", ["cifar10"]),
 ])
 def test_evaluation_clis_default_to_the_card(no_card, cli, argv):
     import importlib
@@ -160,3 +165,16 @@ def test_load_run_defaults_to_the_card(no_card):
         load_run("logs/none", "sndcgan")
     with pytest.raises(FileNotFoundError, match="config.toml"):
         load_run("logs/none", "sndcgan", device="cpu")
+
+
+def test_inception_and_its_embedders_default_to_the_card(no_card):
+    from contrad_tpu_torch.evaluate.fid import get_embed_fn
+    from contrad_tpu_torch.evaluate.inception import (
+        get_inception_embed_fn, get_inception_logits_fn, load_inception)
+    from contrad_tpu_torch.evaluate.inception_score import inception_score
+
+    for call in (load_inception, get_inception_embed_fn,
+                 get_inception_logits_fn, lambda: get_embed_fn("inception"),
+                 lambda: inception_score(np.zeros((2, 8, 8, 3), np.uint8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -38,6 +38,7 @@ from contrad_tpu.training.step import StyleGAN2Trainer as JaxTrainer
 from contrad_tpu_torch.augment import get_augment
 from contrad_tpu_torch.bridge import torch_state_dict
 from contrad_tpu_torch.training import ScheduledAdam, StyleGAN2Trainer, ema_update
+from contrad_tpu_torch.training.modes import Draws
 from torch_port_jax import (  # noqa: F401  (one_torch_thread is autouse)
     build_pair, jax_mixing, jax_simclr_params, noise_list, one_torch_thread, t,
     to_np)
@@ -107,7 +108,7 @@ def slice_run():
                                      g_aug)
     p_g_grads = dict(zip([k for k, _ in pg.named_parameters()],
                          torch.autograd.grad(p_g_loss, list(pg.parameters()))))
-    p_total, p_metrics = trainer.d_loss(t(images), t(gen), d_aug, r1_aug)
+    p_total, p_metrics = trainer.d_loss(t(images), t(gen), Draws(d_aug), r1_aug)
     p_d_grads = dict(zip([k for k, _ in pd.named_parameters()],
                          torch.autograd.grad(p_total, list(pd.parameters()))))
     return dict(
