@@ -89,7 +89,20 @@ result line:
    (TF32 convs as in training): ms, img/s and TFLOP/s, beside TF32 off,
    NCHW layout and cuDNN's autotuner at 32x32, and a profile of it (kernel
    time by class); then ``test_fid_is --embed moments`` on phase 8's
-   StyleGAN2 samples.
+   StyleGAN2 samples;
+10. mixed precision: each README recipe (the flagship at batch 512, the
+   32x32 StyleGAN2 recipe at 64, the 512x512 recipe at 16 for 17 steps,
+   step 16 with R1) through its CLI in float32 and under the production
+   stack ``--dtype bf16 --opt_moments bf16 --opt_nu bf16 --opt_grads bf16``,
+   in turns (f32, bf16, f32, bf16): ms/step, img/s, peak memory and the
+   512x512 R1 step, the blur launching in every run exactly as phase 3
+   counts (its bfloat16 rows), never on its scalar path, finite losses; a
+   torch.profiler breakdown of 3 bfloat16 512x512 steps by class beside
+   phase 7's float32 one; then a bfloat16 flagship step (batch 64) and a
+   bfloat16 512x512 step with R1 (batch 4) card against CPU (TF32 off) at
+   the CPU parity test's tolerance (``tests/test_torch_port_bf16_step.py``:
+   losses within 3e-2, each gradient tensor's cosine at least 0.99 or
+   bfloat16's own float32 distance).
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -1446,6 +1459,269 @@ def inception_phase(sample_dir: str):
                 seconds=seconds)
 
 
+# ------------------------------------------------------- mixed precision
+
+# the production stack of the JAX record, through the CLIs' four flags
+BF16_STACK = ["--dtype", "bf16", "--opt_moments", "bf16", "--opt_nu", "bf16",
+              "--opt_grads", "bf16"]
+BF16_REL, BF16_COS = 3e-2, 0.99  # tests/test_torch_port_bf16_step.py's
+# where bf16's own cosine to float32 is below 0.99: the card's bf16
+# gradient at most this many times as far (in 1 - cosine) from the CPU's
+# as the float32 one is (their convs accumulate in other orders, so the
+# two bf16 roundings share less than the port's and JAX's on the CPU)
+BF16_SPREAD = 1.1
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def layer_dtypes(*modules) -> dict:
+    """Forward hooks on every submodule: {name: the set of its output
+    dtypes}, filled as the modules run."""
+    import torch
+
+    seen = {}
+
+    def hook(name):
+        def forward_hook(_, __, out):
+            if isinstance(out, torch.Tensor):
+                seen.setdefault(name, set()).add(str(out.dtype))
+        return forward_hook
+
+    for i, module in enumerate(modules):
+        for name, m in module.named_modules():
+            m.register_forward_hook(hook(f"{'GD'[i]}.{name}"))
+    return seen
+
+
+def strength_sums(G) -> dict:
+    """Hooks on a StyleGAN2 G's ``NoiseInjection`` modules: per strength,
+    ``sum|g * noise|`` and ``sum(g * noise)`` in float64, ``g`` the gradient
+    reaching the injection in the backward of the (one) forward that has
+    one. Fills the dict it returns as the step runs."""
+    from contrad_tpu_torch.models.stylegan2.generator import NoiseInjection
+
+    sums = {}
+
+    def hook(name):
+        def forward_hook(_, args, out):
+            if out.requires_grad:
+                noise = args[1].detach().double()
+
+                def grad_hook(g):
+                    p = g.detach().double() * noise
+                    sums[name] = (float(p.abs().sum()), float(p.sum()))
+                out.register_hook(grad_hook)
+        return forward_hook
+
+    for name, m in G.named_modules():
+        if isinstance(m, NoiseInjection):
+            m.register_forward_hook(hook(f"G.{name}.weight"))
+    return sums
+
+
+def bf16_card_vs_cpu(arch: str, batch: int) -> dict:
+    """One step of a recipe's trainer under the bfloat16 compute dtype on
+    the card and on the CPU, from the same weights, images and draws, TF32
+    off, the gradients kept (``KeepGrads``): ``sndcgan`` the flagship's
+    ``GANTrainer`` (contrad, simclr), ``stylegan2_512`` the 512x512
+    recipe's ``StyleGAN2Trainer`` with R1. Held as the CPU parity test
+    holds the port to JAX: losses within 3e-2 of the CPU's; each gradient
+    tensor's cosine against the CPU's bfloat16 one at least 0.99, or, where
+    the CPU's bfloat16 gradient is further from the float32 one (taken on
+    the card), ``1 - cosine`` at most ``BF16_SPREAD`` times theirs; every
+    module's output dtype the same on both (``layer_dtypes``); where the
+    float32 gradient
+    vanishes (a bias a batch norm follows) the card's noise at most twice
+    the CPU's; each StyleGAN2 noise strength (a scalar, ``sum(g * noise)``
+    over its layer) within ``2^-8 * sum|g * noise|`` (``g`` the card's
+    gradient reaching the injection) of the CPU's bfloat16 value, of the
+    float32 one and of ``sum(g * noise)`` in float64, with their sign
+    wherever they exceed that bound."""
+    import torch
+
+    from contrad_tpu_torch.augment import get_augment
+    from contrad_tpu_torch.config import default_config_files, load_config
+    from contrad_tpu_torch.models import get_architecture
+    from contrad_tpu_torch.training import GANTrainer, StyleGAN2Trainer
+
+    size = 512 if arch == "stylegan2_512" else 32
+    images = torch.rand(batch, size, size, 3,
+                        generator=torch.Generator().manual_seed(5))
+    draws, out, strengths, dtypes = None, {}, {}, {}
+    for device, dtype in (("cpu", "bf16"), ("cuda", "bf16"), ("cuda", "f32")):
+        G, D = get_architecture(arch, (size, size, 3), device=device, seed=1,
+                                dtype=dtype)
+        g_tx, d_tx = KeepGrads(), KeepGrads()
+        if (device, dtype) == ("cuda", "bf16"):
+            strengths = strength_sums(G)  # filled by the step
+        if dtype == "bf16":
+            dtypes[device] = layer_dtypes(G, D)  # likewise
+        if arch == "stylegan2_512":
+            hyper = load_config(default_config_files(RECIPE_512[0])).get(
+                "augment")
+            trainer = StyleGAN2Trainer(
+                G, D, mode="contrad", augment=get_augment("simclr_hq", hyper),
+                g_optimizer=g_tx, d_optimizer=d_tx, loss_type="nonsat",
+                lbd_r1=0.5, d_reg_every=16)
+            if draws is None:
+                draws = trainer.draw_step(images.shape, with_r1=True)
+        else:
+            trainer = GANTrainer(G, D, mode="contrad",
+                                 augment=get_augment("simclr"),
+                                 g_optimizer=g_tx, d_optimizer=d_tx,
+                                 loss_type="nonsat")
+            if draws is None:
+                draws = trainer.draw_step(images.shape)
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(images.to(device),
+                                     draws=_to(draws, device))
+        grads = {f"G.{k}": g.cpu() for (k, _), g in zip(G.named_parameters(),
+                                                         g_tx.grads)}
+        grads.update({f"D.{k}": g.cpu() for (k, _), g in zip(
+            D.named_parameters(), d_tx.grads)})
+        out[device, dtype] = ({k: float(v) for k, v in metrics.items()},
+                              grads, time.perf_counter() - t0)
+        del trainer, G, D
+        torch.cuda.empty_cache()
+    (want_m, want_g, cpu_s), (got_m, got_g, card_s), (_, f32_g, _) = (
+        out["cpu", "bf16"], out["cuda", "bf16"], out["cuda", "f32"])
+    failed, worst_loss, cosines = [], 0.0, []
+    for k, w in want_m.items():
+        g = got_m[k]
+        err = abs(g - w)
+        log(f"  {k:10s} card {g:.6g} cpu {w:.6g} (tol {BF16_REL * abs(w):.3g})")
+        if not (math.isfinite(g) and err <= BF16_REL * abs(w) + 1e-6):
+            failed.append(k)
+        worst_loss = max(worst_loss, err / (abs(w) + 1e-12))
+    for k, w in want_g.items():
+        g = got_g[k]
+        if not bool(torch.isfinite(g).all()):
+            failed.append(k)
+            continue
+        if k in strengths:
+            abs_sum, own = strengths[k]
+            bound = 2.0 ** -8 * abs_sum
+            refs = (("cpu", float(w)), ("f32", float(f32_g[k])), ("own", own))
+            log(f"  {k:44s} card {float(g):+.4e} " + " ".join(
+                f"{r} {v:+.4e}" for r, v in refs) + f" (bound {bound:.2e})")
+            if not all(abs(float(g) - v) <= bound and (
+                    abs(v) <= bound or (float(g) > 0) == (v > 0))
+                    for _, v in refs):
+                failed.append(k)
+            continue
+        if float(f32_g[k].norm()) < 1e-6:
+            if not float(g.norm()) <= max(2 * float(w.norm()), 1e-4):
+                failed.append(k)
+            continue
+        bound = min(BF16_COS,
+                    1 - BF16_SPREAD * (1 - _cosine(w, f32_g[k])))
+        cos = _cosine(g, w)
+        cosines.append(cos)
+        if bound < BF16_COS or not cos >= bound:
+            log(f"  {k:44s} cosine {cos:.4f} (bound {bound:.4f}; card f32 "
+                f"vs CPU {_cosine(f32_g[k], w):.4f})")
+        if not cos >= bound:
+            failed.append(k)
+    wrong = sorted(k for k in dtypes["cpu"].keys() | dtypes["cuda"].keys()
+                   if dtypes["cpu"].get(k) != dtypes["cuda"].get(k))
+    if wrong or not any("torch.bfloat16" in d for d in dtypes["cuda"].values()):
+        log("  layer dtypes differ (cpu, card): " + ", ".join(
+            f"{k} {dtypes['cpu'].get(k)} {dtypes['cuda'].get(k)}"
+            for k in wrong))
+        failed.append("layer dtypes")
+    if arch == "stylegan2_512" and len(strengths) != 15:
+        failed.append(f"{len(strengths)} noise strengths seen, not 15")
+    log(f"  {len(want_g)} gradient tensors: cosine card vs CPU "
+        f"{min(cosines):.4f} at worst ({sum(c >= BF16_COS for c in cosines)}"
+        f" of {len(cosines)} at 0.99 or more; {len(strengths)} noise "
+        f"strengths checked; {len(dtypes['cuda'])} modules' output dtypes "
+        f"as on the CPU); losses within {worst_loss:.2e} "
+        f"relative; step {cpu_s:.1f} s on the CPU, {card_s:.2f} s on the card"
+        f" (first)")
+    if failed:
+        raise AssertionError(f"bfloat16 {arch} step: card and CPU disagree "
+                             f"on {failed}")
+    return dict(batch=batch, min_cosine=min(cosines),
+                worst_loss_rel=worst_loss, cpu_s=cpu_s, card_s=card_s)
+
+
+def bf16_phase(per_step, step_sum) -> dict:
+    """Phase 10: each README recipe through its CLI in float32 and under the
+    bfloat16 stack, in turns (f32, bf16, f32, bf16): ms/step, img/s, peak
+    memory (and the 512x512 recipe's R1 step), the blur launching as phase
+    3 counts in every run, never on its scalar path; a profile of 3
+    bfloat16 512x512 steps; a bfloat16 flagship step and 512x512 step with
+    R1 card against CPU. Returns its numbers."""
+    import torch
+
+    from contrad_tpu_torch import (
+        train_gan, train_stylegan2, train_stylegan2_contraD)
+
+    t10 = time.perf_counter()
+    phase("[10] mixed precision: the three recipes in float32 and under the "
+          "bf16 stack (" + " ".join(BF16_STACK) + "), in turns")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    recipes = (
+        ("sndcgan", train_gan.main, FLAGSHIP, "synthetic_32", STEPS, None,
+         0),
+        ("stylegan2_32", train_stylegan2.main, RECIPE, "synthetic_32", STEPS,
+         BATCH, STEPS * per_step["stylegan2_32"]),
+        ("stylegan2_512", train_stylegan2_contraD.main, RECIPE_512, DATA_512,
+         STEPS_512, BATCH_512, (STEPS_512 - 1) * per_step["stylegan2_512"]
+         + per_step["stylegan2_512_r1"]))
+    runs = {}
+    for name, main, recipe, data, steps, batch, launches in recipes:
+        for turn in ("f32", "bf16", "f32", "bf16"):
+            r = run_cli(main, recipe + (BF16_STACK if turn == "bf16" else []),
+                        data, steps, batch)
+            expect_launches(r, launches, f"the {turn} {name} run")
+            if name == "stylegan2_512":
+                h = r["history"]
+                if [x["step"] for x in h if x["D_r1"] > 0] != [16]:
+                    raise AssertionError("R1 did not run at step 16")
+                r["ms_per_plain_step"] = 1e3 * sum(
+                    x["seconds_per_step"] for x in h[1:15]) / 14
+                r["ms_per_r1_step"] = 1e3 * h[15]["seconds_per_step"]
+                r["img_per_s"] = BATCH_512 / (r["ms_per_plain_step"] * 1e-3)
+                r["ms_per_step"] = r["ms_per_plain_step"]
+            extra = (f", R1 step {r['ms_per_r1_step']:.2f} ms"
+                     if "ms_per_r1_step" in r else "")
+            log(f"  {name:13s} {turn:4s} batch {r['batch']}: "
+                f"{r['ms_per_step']:.2f} ms/step, {r['img_per_s']:.1f} img/s"
+                f"{extra}; peak {r['peak_bytes'] / 2**30:.3f} GiB; blur "
+                f"launches {r['launches']} (scalar {r['scalar_launches']})")
+            runs.setdefault(name, {}).setdefault(turn, []).append(
+                {k: v for k, v in r.items() if k != "history"})
+            del r
+            torch.cuda.empty_cache()
+    for name in runs:
+        f32 = [r["ms_per_step"] for r in runs[name]["f32"]]
+        bf = [r["ms_per_step"] for r in runs[name]["bf16"]]
+        log(f"  {name}: f32 {min(f32):.2f}-{max(f32):.2f} ms/step, bf16 "
+            f"{min(bf):.2f}-{max(bf):.2f} (bf16/f32 {sum(bf) / sum(f32):.3f})")
+    prof = profile(train_stylegan2, RECIPE_512 + BF16_STACK, DATA_512,
+                   BATCH_512)
+    expect_launches(prof, per_step["stylegan2_512"],
+                    "a profiled bf16 512x512 step")
+    log(f"  blur kernel per bf16 plain step: {prof['blur_ms_per_step']:.3f} "
+        f"ms under the profiler; phase 3's bfloat16 times weighted by "
+        f"launches per step: {step_sum['stylegan2_512 bfloat16 ms']:.3f} ms "
+        f"warm ({step_sum['stylegan2_32 bfloat16 ms']:.3f} ms a 32x32 step)")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    phase("  a bf16 flagship step (batch 64) card against CPU")
+    gan = bf16_card_vs_cpu("sndcgan", 64)
+    phase("  a bf16 512x512 step (batch 4, R1) card against CPU")
+    sg512 = bf16_card_vs_cpu("stylegan2_512", 4)
+    seconds = time.perf_counter() - t10
+    log(f"  phase 10: {seconds:.1f} s")
+    return dict(runs=runs, profile_512=prof, card_vs_cpu=dict(
+        sndcgan=gan, stylegan2_512=sg512), seconds=seconds)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1583,6 +1859,7 @@ def main() -> int:
 
     phase8 = evaluation_phase(train_gan, train_stylegan2, per_step, flagship)
     phase9 = inception_phase(phase8["stylegan2"]["sample_dir"])
+    phase10 = bf16_phase(per_step, step_sum)
     logs.cleanup()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
@@ -1600,7 +1877,10 @@ def main() -> int:
             "sndcgan (phase 6)": flagship["launches"],
             "snresnet18 (phase 6)": snresnet["launches"],
             f"stylegan2_512 (phase 7, {STEPS_512} steps)": run512["launches"],
-            **phase8["launches"]},
+            **phase8["launches"],
+            **{f"{name} bf16 (phase 10, run {i + 1})": r["launches"]
+               for name, turns in phase10["runs"].items()
+               for i, r in enumerate(turns["bf16"])}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
                                   sndcgan_conditional=0)}]
     total_s = time.perf_counter() - T0
@@ -1620,7 +1900,7 @@ def main() -> int:
                          tf32="convs on, matmuls off (card vs CPU: off)"),
             stylegan2_512=dict(train=run512, profile=prof512,
                                card_vs_cpu=check512),
-            evaluation=phase8, inception=phase9),
+            evaluation=phase8, inception=phase9, bf16=phase10),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

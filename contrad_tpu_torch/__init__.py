@@ -10,6 +10,10 @@ Conventions shared by every module:
   * randomness comes from explicit ``torch.Generator``s, and every random
     draw of the train step can also be passed in (the tests feed the draws
     JAX made);
+  * a model's compute dtype (``get_architecture(..., dtype=)``) is what
+    its layers cast their inputs and weights to; parameters stay float32
+    masters, and the places the JAX package pins to float32 stay there
+    (:func:`at_least_f32`);
   * entry points run on the card (``device="cuda"``) and raise when there is
     none, unless the caller asks for ``device="cpu"``. The hand-written CUDA
     kernels serve CUDA tensors; their plain PyTorch versions serve CPU
@@ -17,6 +21,8 @@ Conventions shared by every module:
 """
 
 from __future__ import annotations
+
+from typing import Optional, Union
 
 import torch
 
@@ -43,3 +49,29 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     where the JAX package computes in float32 (heads, losses, statistics)
     widen narrower inputs and keep a float64 run in float64."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` in the compute dtype ``dtype``; None, a float32 model's, leaves
+    ``x`` in its own dtype (so a model made double computes in float64)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def reduced_dtype(dtype: DtypeLike) -> Optional[torch.dtype]:
+    """The dtype that a compute dtype or a storage lever names
+    (``torch.float32``/``torch.bfloat16``, or the CLIs' ``f32``/``bf16``):
+    bfloat16, or None for float32, where tensors keep the parameters' own
+    dtype."""
+    if isinstance(dtype, str):
+        if dtype not in _DTYPE_NAMES:
+            raise ValueError(f"unknown dtype {dtype!r}: use f32 or bf16")
+        dtype = _DTYPE_NAMES[dtype]
+    if dtype in (None, torch.float32):
+        return None
+    if dtype != torch.bfloat16:
+        raise ValueError(f"dtype {dtype}: use float32 or bfloat16")
+    return dtype
+
+
+_DTYPE_NAMES = {"f32": torch.float32, "bf16": torch.bfloat16}
+DtypeLike = Union[str, torch.dtype, None]

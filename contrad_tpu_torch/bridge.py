@@ -29,6 +29,11 @@ trees, which share the parameters' structure. Rules:
 The StyleGAN2 upsampling ModulatedConv's kernel is converted like any conv;
 that port flips it at run time.
 
+:func:`adam_state_from_optax` turns an optax ``ScaleByAdamState`` (Adam's
+``count``, ``mu`` and ``nu``, trees shaped as the parameters) into the
+state ``ScheduledAdam.load_state_dict`` takes; bfloat16 moments are carried
+bit for bit (every tensor keeps its dtype, bfloat16 included).
+
 :func:`inception_state_from_jax` is the inverse of the JAX package's
 ``convert_torch_checkpoint`` for the FID InceptionV3: flax variables
 (``params`` and ``batch_stats``) -> the checkpoint's keys, which the port's
@@ -47,6 +52,15 @@ _LISTS = re.compile(r"^(style|layers|to_rgbs)_(\d+)$")
 _CONV_TRANSPOSE = re.compile(r"^up\d+$")
 _RENAME = {"scale": "weight", "embedding": "weight", "mean": "running_mean",
            "var": "running_var"}
+
+
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    """A writable, contiguous copy; float32 or wider, bfloat16 kept."""
+    if value.dtype.name == "bfloat16":  # exact through float32
+        return torch.from_numpy(np.ascontiguousarray(
+            value, dtype=np.float32)).to(torch.bfloat16)
+    dtype = np.result_type(value.dtype, np.float32)  # float64 stays
+    return torch.from_numpy(np.array(value, dtype=dtype))
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -81,10 +95,22 @@ def torch_state_dict(jax_params: Mapping, jax_state: Optional[Mapping] = None
         for path, value in _flatten(tree).items():
             names = [_LISTS.sub(r"\1.\2", p) for p in path[:-1]]
             leaf, value = _convert(path, value)
-            dtype = np.result_type(value.dtype, np.float32)  # float64 stays
-            out[".".join(names + [leaf])] = torch.from_numpy(
-                np.array(value, dtype=dtype))  # a writable, contiguous copy
+            out[".".join(names + [leaf])] = _tensor(value)
     return out
+
+
+def adam_state_from_optax(adam_state, module: torch.nn.Module) -> dict:
+    """An optax ``ScaleByAdamState`` whose ``mu`` and ``nu`` are trees of
+    the JAX twin of ``module``'s parameters (numpy or JAX leaves) -> the
+    ``ScheduledAdam.state_dict`` layout for ``module.parameters()``."""
+    mu, nu = torch_state_dict(adam_state.mu), torch_state_dict(adam_state.nu)
+    count = int(np.asarray(adam_state.count))
+    names = [name for name, _ in module.named_parameters()]
+    state = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
+                 "exp_avg_sq": nu[name]} for i, name in enumerate(names)}
+    return {"count": count,
+            "adam": {"state": state,
+                     "param_groups": [{"params": list(range(len(names)))}]}}
 
 
 def inception_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -105,7 +131,5 @@ def inception_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 leaf = bn[leaf]
             elif leaf == "kernel":  # fc
                 leaf, value = "weight", value.T
-            dtype = np.result_type(value.dtype, np.float32)
-            out[".".join(names + [leaf])] = torch.from_numpy(
-                np.array(value, dtype=dtype))
+            out[".".join(names + [leaf])] = _tensor(value)
     return out

@@ -1,7 +1,7 @@
 """Architecture registry (the port of ``contrad_tpu/models/__init__.py``).
 
-``get_architecture(name, image_size, device)`` returns ``(G, D)`` modules on
-``device``:
+``get_architecture(name, image_size, device, dtype=)`` returns ``(G, D)``
+modules on ``device`` computing in ``dtype``:
   * ``sndcgan``        — G_SNDCGAN + D_SNDCGAN(mlp_linear, d_hidden=512)
   * ``snresnet18``     — G_SNDCGAN + D_SNResNet18(mlp_linear, d_hidden=1024)
   * ``stylegan2``      — small32 StyleGAN2 G + ResidualDiscriminatorP(d_hidden=512)
@@ -19,7 +19,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from contrad_tpu_torch import resolve_device
+from contrad_tpu_torch import DtypeLike, reduced_dtype, resolve_device
 from contrad_tpu_torch.models.base import Discriminator, l2_normalize_rows
 
 
@@ -29,16 +29,22 @@ ARCHITECTURES = ("sndcgan", "snresnet18", "stylegan2", "stylegan2_512",
 
 def get_architecture(architecture: str, image_size: Tuple[int, int, int],
                      device: str | torch.device = "cuda",
-                     seed: Optional[int] = None, n_classes: int = 1
+                     seed: Optional[int] = None, n_classes: int = 1,
+                     dtype: DtypeLike = torch.float32
                      ) -> Tuple[nn.Module, Discriminator]:
-    """Build (G, D) in float32 on ``device``; ``seed`` makes the random
-    initialisation reproducible. ``n_classes > 1`` adds the projection
-    discrimination head (``SNEmbed``; reference base.py:107-130)."""
+    """Build (G, D) on ``device`` with float32 parameters, computing in
+    ``dtype`` (``torch.float32`` or ``torch.bfloat16``, or ``f32``/``bf16``):
+    the conv stacks of every family take it, while the heads, the style MLP
+    and the loss math stay float32 (``contrad_tpu/models/__init__.py:30-94``).
+    ``seed`` makes the random initialisation reproducible. ``n_classes > 1``
+    adds the projection discrimination head (``SNEmbed``; reference
+    base.py:107-130)."""
     from contrad_tpu_torch.models.sndcgan import DSndcgan, GSndcgan
     from contrad_tpu_torch.models.snresnet import DSnresnet18
     from contrad_tpu_torch.models.stylegan2 import DStylegan2, GStylegan2
 
     device = resolve_device(device)
+    dtype = reduced_dtype(dtype)
     resolution = image_size[0]
     if architecture not in ARCHITECTURES:
         raise NotImplementedError(f"unknown architecture: {architecture}")
@@ -49,26 +55,31 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
         if seed is not None:
             torch.manual_seed(seed)
         if architecture == "sndcgan":
-            generator = GSndcgan(image_size)
+            generator = GSndcgan(image_size, dtype=dtype)
             discriminator = DSndcgan(image_size, d_hidden=512,
-                                     n_classes=n_classes)
+                                     n_classes=n_classes, dtype=dtype)
         elif architecture == "snresnet18":
-            generator = GSndcgan(image_size)
-            discriminator = DSnresnet18(d_hidden=1024, n_classes=n_classes)
+            generator = GSndcgan(image_size, dtype=dtype)
+            discriminator = DSnresnet18(d_hidden=1024, n_classes=n_classes,
+                                        dtype=dtype)
         elif architecture == "stylegan2":
-            generator = GStylegan2(size=resolution, n_mlp=8, small32=True)
+            generator = GStylegan2(size=resolution, n_mlp=8, small32=True,
+                                   dtype=dtype)
             discriminator = DStylegan2(size=resolution, small32=True,
-                                       d_hidden=512, n_classes=n_classes)
+                                       d_hidden=512, n_classes=n_classes,
+                                       dtype=dtype)
         elif architecture == "stylegan2_512":
             generator = GStylegan2(size=resolution, n_mlp=8,
-                                   channel_multiplier=1.0)
+                                   channel_multiplier=1.0, dtype=dtype)
             discriminator = DStylegan2(size=resolution, channel_multiplier=1.0,
-                                       d_hidden=512, n_classes=n_classes)
+                                       d_hidden=512, n_classes=n_classes,
+                                       dtype=dtype)
         else:
             generator = GStylegan2(size=resolution, n_mlp=2,
-                                   channel_multiplier=0.25)
+                                   channel_multiplier=0.25, dtype=dtype)
             discriminator = DStylegan2(size=resolution, channel_multiplier=0.25,
-                                       d_hidden=32, n_classes=n_classes)
+                                       d_hidden=32, n_classes=n_classes,
+                                       dtype=dtype)
     return generator.to(device), discriminator.to(device)
 
 

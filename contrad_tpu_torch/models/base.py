@@ -92,6 +92,13 @@ class Discriminator(nn.Module):
         self.projection2 = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
                                          head_init)
 
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        """The backbone's compute dtype (None: the parameters' own), the
+        dtype of the images the trainers feed D; the heads run in float32
+        on the backbone's float32 features."""
+        return self.backbone.dtype
+
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 sg_linear: bool = False, train: bool = True,
                 persist: bool = True

@@ -13,17 +13,24 @@ port follows it:
 
 Every conv, conv-transpose, dense layer and head weight starts at
 N(0, 0.02) and every bias at 0. G's batch norms start at scale 1, bias 0.
+
+Under a bfloat16 compute dtype (``dtype``) G's dense layer, conv-transposes
+and batch norms run in it (the norms take their statistics and normalise in
+float32, as flax's ``BatchNorm(dtype=)`` does), ``tanh`` runs in float32,
+and G emits bfloat16 in training and float32 in eval; D casts its input
+``x * 2 - 1`` to bfloat16 and hands its features to the heads in float32
+(``contrad_tpu/models/sndcgan.py:36-110``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contrad_tpu_torch import at_least_f32
+from contrad_tpu_torch import at_least_f32, cast
 from contrad_tpu_torch.models.base import Discriminator
 from contrad_tpu_torch.ops.spectral_norm import SNConv, dcgan_normal_
 
@@ -40,7 +47,9 @@ class BatchNorm(nn.Module):
     and biased variance and moves the running statistics to
     ``0.9 * running + 0.1 * batch``. ``torch.nn.BatchNorm`` would keep the
     unbiased variance there, larger by n / (n - 1). In eval mode it
-    normalises with the running statistics."""
+    normalises with the running statistics. A bfloat16 input is normalised
+    in float32 against the float32 statistics and parameters, and the
+    result rounded to bfloat16 (``F.batch_norm``'s mixed-dtype form)."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -78,8 +87,9 @@ class GSndcgan(nn.Module):
     (``contrad_tpu_torch/bridge.py``)."""
 
     def __init__(self, image_size: Tuple[int, int, int], ngf: int = 64,
-                 nz: int = 128):
+                 nz: int = 128, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         s_h, s_w, nc = image_size
         self.base = (ngf * 8, s_h // 8, s_w // 8)
         self.nz = nz
@@ -100,15 +110,22 @@ class GSndcgan(nn.Module):
                        device=generator.device, dtype=self.linear.weight.dtype)
         return u * 2.0 - 1.0
 
+    def _params(self, layer: nn.Module):
+        return cast(layer.weight, self.dtype), cast(layer.bias, self.dtype)
+
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x = F.relu(self.norm_init(self.linear(z), train))
+        x = F.linear(cast(z, self.dtype), *self._params(self.linear))
+        x = F.relu(self.norm_init(x, train))
         x = x.reshape(-1, *self.base).contiguous(
             memory_format=torch.channels_last)
         for i in range(3):
             up, norm = getattr(self, f"up{i}"), getattr(self, f"norm{i}")
-            x = F.relu(norm(up(x), train))
-        x = torch.tanh(self.to_rgb(x))
-        return (0.5 * x + 0.5).permute(0, 2, 3, 1)
+            x = F.conv_transpose2d(x, *self._params(up), stride=2, padding=1)
+            x = F.relu(norm(x, train))
+        x = F.conv2d(x, *self._params(self.to_rgb), padding=1)
+        x = 0.5 * torch.tanh(at_least_f32(x)) + 0.5
+        # training emits the compute dtype, eval float32 (JAX's rule)
+        return (cast(x, self.dtype) if train else x).permute(0, 2, 3, 1)
 
 
 class SndcganBackbone(nn.Module):
@@ -116,8 +133,9 @@ class SndcganBackbone(nn.Module):
     ``sndcgan.py:92-125``): (N, H, W, 3) in [0, 1] -> (N, 8·ndf·H/8·W/8)."""
 
     def __init__(self, image_size: Tuple[int, int, int], ndf: int = 64,
-                 use_sn: bool = True):
+                 use_sn: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         c = image_size[2]
         layers = ((c, ndf, 3, 1), (ndf, ndf * 2, 4, 2),
                   (ndf * 2, ndf * 2, 3, 1), (ndf * 2, ndf * 4, 4, 2),
@@ -126,11 +144,12 @@ class SndcganBackbone(nn.Module):
         self.convs = [f"c{i}" for i in range(len(layers))]
         for name, (cin, cout, k, s) in zip(self.convs, layers):
             self.add_module(name, SNConv(cin, cout, k, stride=s, padding=1,
-                                         use_sn=use_sn, init=dcgan_normal_))
+                                         use_sn=use_sn, init=dcgan_normal_,
+                                         dtype=dtype))
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 persist: bool = True) -> torch.Tensor:
-        x = (x * 2.0 - 1.0).permute(0, 3, 1, 2)
+        x = cast(x * 2.0 - 1.0, self.dtype).permute(0, 3, 1, 2)
         for name in self.convs:
             x = F.leaky_relu(getattr(self, name)(x, train, persist), 0.1)
         # (h, w, c) order, as the JAX package flattens NHWC; heads in f32
@@ -143,10 +162,11 @@ def sndcgan_n_features(image_size: Tuple[int, int, int], ndf: int = 64) -> int:
 
 
 def DSndcgan(image_size: Tuple[int, int, int], ndf: int = 64,
-             d_hidden: int = 128, n_classes: int = 1) -> Discriminator:
+             d_hidden: int = 128, n_classes: int = 1,
+             dtype: Optional[torch.dtype] = None) -> Discriminator:
     """SNDCGAN backbone + the three heads, all spectral-normed, heads at
     N(0, 0.02) (the reference re-inits them so)."""
     return Discriminator(
-        backbone=SndcganBackbone(image_size, ndf),
+        backbone=SndcganBackbone(image_size, ndf, dtype=dtype),
         d_penul=sndcgan_n_features(image_size, ndf), d_hidden=d_hidden,
         use_sn=True, head_init=dcgan_normal_, n_classes=n_classes)

@@ -3,17 +3,21 @@
 FromRGB -> residual downsample blocks (/sqrt(2)) -> minibatch stddev ->
 3x3 conv -> flattened penultimate features, wrapped with the three heads of
 :class:`contrad_tpu_torch.models.base.Discriminator`. No spectral norm.
+Under a bfloat16 compute dtype (``dtype``) the input ``x * 2 - 1`` is cast
+to it and the layers follow; the minibatch stddev is taken in float32 and
+cast back, and the features reach the heads in float32
+(``contrad_tpu/models/stylegan2/discriminator.py:40-151``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from contrad_tpu_torch import at_least_f32
+from contrad_tpu_torch import at_least_f32, cast
 from contrad_tpu_torch.models.base import Discriminator
 from contrad_tpu_torch.models.stylegan2.generator import stylegan2_channels
 from contrad_tpu_torch.models.stylegan2.layers import ConvLayer, FromRGB
@@ -56,8 +60,9 @@ class ResidualBackbone(nn.Module):
 
     def __init__(self, size: int, channel_multiplier: float = 2.0,
                  blur_kernel: Sequence[int] = (1, 3, 3, 1),
-                 small32: bool = False):
+                 small32: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         channels = stylegan2_channels(channel_multiplier, small32)
         self.from_rgb = FromRGB(channels[size])
         self.block_names = []
@@ -74,7 +79,7 @@ class ResidualBackbone(nn.Module):
                 persist: bool = True) -> torch.Tensor:
         """``train`` and ``persist`` are the Discriminator protocol's; this
         backbone has no spectral norm and no state, so both are no-ops."""
-        x = self.from_rgb(x * 2.0 - 1.0)
+        x = self.from_rgb(cast(x * 2.0 - 1.0, self.dtype))
         for name in self.block_names:
             x = getattr(self, name)(x)
         x = self.last_conv(minibatch_stddev(x))
@@ -84,9 +89,10 @@ class ResidualBackbone(nn.Module):
 def DStylegan2(size: int, channel_multiplier: float = 2.0,
                blur_kernel: Sequence[int] = (1, 3, 3, 1),
                small32: bool = False, d_hidden: int = 128,
-               n_classes: int = 1) -> Discriminator:
+               n_classes: int = 1, dtype: Optional[torch.dtype] = None
+               ) -> Discriminator:
     channels = stylegan2_channels(channel_multiplier, small32)
     return Discriminator(
         backbone=ResidualBackbone(size, channel_multiplier, blur_kernel,
-                                  small32),
+                                  small32, dtype),
         d_penul=channels[4] * 4 * 4, d_hidden=d_hidden, n_classes=n_classes)

@@ -7,6 +7,12 @@ layer takes the reference's unfused form: transposed conv, demodulation,
 then the FIR blur through the hand-written blur kernel
 (``generator.py:132-141``).
 
+Under a bfloat16 compute dtype (``dtype``) the synthesis runs in it: the
+constant input, the convs and the noise; the style MLP, the modulation and
+the demodulation stay float32 from a float32 style, and the image is
+bfloat16 in training and float32 in eval
+(``contrad_tpu/models/stylegan2/generator.py:79-92,260,368-400``).
+
 Random draws are explicit: :meth:`GStylegan2.draw_noise` and
 :meth:`GStylegan2.draw_mixing` make them from a ``torch.Generator``, and the
 forward takes them as arguments, so the tests can feed the draws JAX made.
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from contrad_tpu_torch import at_least_f32, cast
 from contrad_tpu_torch.models.stylegan2.layers import (
     Blur, EqualDense, conv2d_nhwc, pixel_norm)
 from contrad_tpu_torch.ops.fused_act import FusedLeakyReLU
@@ -71,14 +78,15 @@ class ModulatedConv(nn.Module):
         w = self.weight * self.scale
         s = self.modulation(style.to(self.weight.dtype))  # (N, in)
         xm = x * s[:, None, None, :].to(x.dtype)
+        wx = w.to(x.dtype)
         if self.upsample:
             # jax.lax.conv_transpose does not flip its kernel and
             # torch.conv_transpose2d does: flip here so the two agree.
-            wt = w.transpose(0, 1).flip(2, 3)
+            wt = wx.transpose(0, 1).flip(2, 3)
             y = F.conv_transpose2d(xm.permute(0, 3, 1, 2), wt, stride=2)
             y = y.permute(0, 2, 3, 1)
         else:
-            y = conv2d_nhwc(xm, w, padding=self.kernel_size // 2)
+            y = conv2d_nhwc(xm, wx, padding=self.kernel_size // 2)
         if self.demodulate:
             w_sq = torch.sum(w**2, dim=(2, 3))  # (out, in)
             demod = torch.rsqrt(s**2 @ w_sq.t() + self.eps)  # (N, out)
@@ -107,8 +115,9 @@ class ConstantInput(nn.Module):
         super().__init__()
         self.const = nn.Parameter(torch.randn(1, size, size, channels))
 
-    def forward(self, batch: int) -> torch.Tensor:
-        return self.const.expand(batch, -1, -1, -1)
+    def forward(self, batch: int,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return cast(self.const, dtype).expand(batch, -1, -1, -1)
 
 
 class StyleLayer(nn.Module):
@@ -140,9 +149,10 @@ class ToRGB(nn.Module):
         self.kernel = make_kernel(blur_kernel)
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias
+        out = self.conv(x, style)
+        out = out + self.bias.to(out.dtype)
         if skip is not None:
-            out = out + upsample2d(skip, self.kernel)
+            out = out + upsample2d(skip, self.kernel).to(out.dtype)
         return out
 
 
@@ -154,8 +164,10 @@ class GStylegan2(nn.Module):
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: float = 2.0,
                  blur_kernel: Sequence[int] = (1, 3, 3, 1),
-                 lr_mlp: float = 0.01, small32: bool = False):
+                 lr_mlp: float = 0.01, small32: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.size = size
         self.style_dim = style_dim
         self.log_size = int(math.log2(size))
@@ -232,7 +244,7 @@ class GStylegan2(nn.Module):
             mask = (idx < mix_layer[:, None]).to(latents.dtype)[..., None]
             latents = latents * mask + latent_mix * (1.0 - mask)
 
-        out = self.input(latents.shape[0])
+        out = self.input(latents.shape[0], self.dtype)
         out = self.conv1(out, latents[:, 0], noise[0])
         skip = self.to_rgb1(out, latents[:, 1])
         idx = 1
@@ -242,7 +254,7 @@ class GStylegan2(nn.Module):
                                          noise[2 + 2 * i])
             skip = to_rgb(out, latents[:, idx + 2], skip)
             idx += 2
-        image = 0.5 * skip + 0.5
-        if not train:
-            image = torch.clamp(image, 0.0, 1.0)
-        return image
+        # training emits the compute dtype, eval float32 (JAX's rule)
+        if train:
+            return 0.5 * cast(skip, self.dtype) + 0.5
+        return torch.clamp(0.5 * at_least_f32(skip) + 0.5, 0.0, 1.0)

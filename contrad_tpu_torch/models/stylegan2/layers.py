@@ -11,6 +11,10 @@ weights are OIHW. A conv permutes its NHWC input to an NCHW view, which is
 The downsampling ConvLayer takes the reference's unfused form, Blur then a
 stride-2 conv, which puts the blur kernel on the main path (the JAX default
 folds the blur into the conv, ``compose_blur_kernel``; same function).
+
+The layers have no dtype of their own: weights, biases and FIR taps are
+cast to the input's dtype, so a bfloat16 activation stays bfloat16 and
+reaches the blur kernel so (``contrad_tpu/models/stylegan2/layers.py:40-110``).
 """
 
 from __future__ import annotations
@@ -55,8 +59,8 @@ class EqualDense(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = self.bias * self.lr_mul + self.bias_init
-        y = F.linear(x, self.weight * self.scale)
+        b = (self.bias * self.lr_mul + self.bias_init).to(x.dtype)
+        y = F.linear(x, (self.weight * self.scale).to(x.dtype))
         if self.activation:
             return fused_leaky_relu(y, b)
         return y + b
@@ -77,9 +81,10 @@ class EqualConv(nn.Module):
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_nhwc(x, self.weight * self.scale, self.stride, self.padding)
+        y = conv2d_nhwc(x, (self.weight * self.scale).to(x.dtype),
+                        self.stride, self.padding)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(y.dtype)
         return y
 
 

@@ -19,6 +19,12 @@ N(0, 1) draw, one per layer. A forward pass makes two choices:
 
 ``torch.nn.utils.spectral_norm`` writes ``u`` in place on every training
 forward, which advances it once per pass instead of once per phase.
+
+``SNDense`` and ``SNConv`` take a compute dtype (``dtype``, None to keep
+the input's): the input and the normalised weight are cast to it, while
+``u``, the power iteration and sigma stay in the parameters' float32, as in
+the JAX package (``spectral_norm.py:61-73,101-104,139-147``). ``SNEmbed``
+has none there and returns the table's dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from contrad_tpu_torch import cast
 
 _SN_EPS = 1e-12  # torch.nn.utils.spectral_norm's default eps
 _LECUN_TRUNC_STD = 0.87962566103423978  # std of N(0,1) truncated to [-2, 2]
@@ -102,8 +110,10 @@ class SNDense(_SpectralState):
     ``kernel`` is its transpose. Biases start at 0."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 use_sn: bool = True, init: Init = lecun_normal_):
+                 use_sn: bool = True, init: Init = lecun_normal_,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(init(torch.empty(features, in_features)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.use_sn = use_sn
@@ -115,7 +125,8 @@ class SNDense(_SpectralState):
         w = self.weight
         if self.use_sn:
             w = self._normalized(w, train, persist)
-        return F.linear(x, w, self.bias)
+        b = None if self.bias is None else cast(self.bias, self.dtype)
+        return F.linear(cast(x, self.dtype), cast(w, self.dtype), b)
 
 
 class SNConv(_SpectralState):
@@ -126,8 +137,10 @@ class SNConv(_SpectralState):
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
-                 use_sn: bool = True, init: Init = lecun_normal_):
+                 use_sn: bool = True, init: Init = lecun_normal_,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         k = kernel_size
         self.weight = nn.Parameter(init(torch.empty(features, in_ch, k, k)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -142,7 +155,9 @@ class SNConv(_SpectralState):
         if self.use_sn:
             w = self._normalized(w.reshape(w.shape[0], -1), train,
                                  persist).reshape(w.shape)
-        return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        b = None if self.bias is None else cast(self.bias, self.dtype)
+        return F.conv2d(cast(x, self.dtype), cast(w, self.dtype), b,
+                        self.stride, self.padding)
 
 
 class SNEmbed(_SpectralState):

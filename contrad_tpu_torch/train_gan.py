@@ -22,7 +22,11 @@ state (the same command line, ``options.max_steps`` raised);
 ``--conditional`` trains a class-conditional D (projection discrimination)
 on a labelled dataset. Any architecture of the registry runs, StyleGAN2's
 included, as in the JAX CLI. It runs on the card; ``--device cpu`` runs it
-on the CPU. ``--dtype bf16`` and multi-step dispatch are not ported yet.
+on the CPU. ``--dtype bf16`` computes in bfloat16 (parameters stay
+float32 masters, the loss math float32) and ``--opt_moments``, ``--opt_nu``
+and ``--opt_grads`` set Adam's storage dtypes; the production
+configuration is all four at ``bf16``. Multi-step dispatch is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
-from contrad_tpu_torch.utils.run import History, add_run_args
+from contrad_tpu_torch.utils.run import (
+    History, add_precision_args, add_run_args)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -56,6 +61,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_precision_args(p)
     add_run_args(p)
     return p.parse_args(argv)
 
@@ -69,6 +75,7 @@ def build(P: argparse.Namespace):
     from contrad_tpu_torch.data import DeviceBatchIterator, get_dataset
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import GANTrainer, ScheduledAdam
+    from contrad_tpu_torch.utils.run import optimizer_levers
 
     device = resolve_device(P.device)
     cfg = finalize_options(load_config(default_config_files(P.config),
@@ -82,11 +89,13 @@ def build(P: argparse.Namespace):
     n_classes = train_set.n_classes if P.conditional else 1
     generator, discriminator = get_architecture(P.architecture, image_size,
                                                 device=device, seed=P.seed,
-                                                n_classes=n_classes)
+                                                n_classes=n_classes,
+                                                dtype=P.dtype)
 
     def adam(module, lr):
         return ScheduledAdam(module.parameters(), lr, tuple(opt.beta),
-                             warmup=opt.warmup, use_warmup=P.use_warmup)
+                             warmup=opt.warmup, use_warmup=P.use_warmup,
+                             **optimizer_levers(P))
 
     trainer = GANTrainer(
         generator, discriminator, mode=P.mode,
@@ -121,7 +130,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     evaluation = run.Evaluation(P, opt, trainer, logger, use_ema=False)
     first = run.restore(P, trainer, loader, logger, evaluation)
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
-    run.log_start(logger, trainer, opt, first)
+    run.log_start(logger, P, trainer, opt, first)
 
     history = History(logger.logdir)
     sync = run.cuda_sync(trainer.device)

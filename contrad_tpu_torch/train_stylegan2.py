@@ -15,8 +15,10 @@ evaluation (FID of the EMA G, the progress GIF, ``ckpt/best``),
 ``--evaluate_every``, ``--save_every``, ``--resume`` and ``--finetune`` as
 ``train_gan``'s. ``--penalty`` (``gp``, ``cr``, ``bcr``) adds a D penalty
 to the first critic sub-step, with the config's ``lbd`` and ``lbd2``. It
-runs on the card; ``--device cpu`` runs it on the CPU. The port has no
-packed layouts, so it takes no ``--no_packed_aug``.
+runs on the card; ``--device cpu`` runs it on the CPU. ``--dtype``,
+``--opt_moments``, ``--opt_nu`` and ``--opt_grads`` are ``train_gan``'s
+(the production configuration: all four ``bf16``). The port has no packed
+layouts, so it takes no ``--no_packed_aug``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from contrad_tpu_torch.utils.run import History, add_run_args
+from contrad_tpu_torch.utils.run import (
+    History, add_precision_args, add_run_args)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -57,6 +60,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_precision_args(p)
     add_run_args(p)
     return p.parse_args(argv)
 
@@ -70,6 +74,7 @@ def build(P: argparse.Namespace):
     from contrad_tpu_torch.data import DeviceBatchIterator, get_dataset
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import ScheduledAdam, StyleGAN2Trainer
+    from contrad_tpu_torch.utils.run import optimizer_levers
 
     device = resolve_device(P.device)
     cfg = finalize_options(load_config(default_config_files(P.config),
@@ -82,7 +87,8 @@ def build(P: argparse.Namespace):
 
     train_set, _, image_size = get_dataset(opt.dataset)
     generator, discriminator = get_architecture(P.architecture, image_size,
-                                                device=device, seed=P.seed)
+                                                device=device, seed=P.seed,
+                                                dtype=P.dtype)
 
     def lr_decay_fn(count: int) -> float:
         # stepped half-life decay (reference train_stylegan2.py:93-103)
@@ -93,7 +99,7 @@ def build(P: argparse.Namespace):
     def adam(module, lr):
         return ScheduledAdam(module.parameters(), lr, tuple(opt.beta),
                              warmup=opt.warmup, use_warmup=P.use_warmup,
-                             lr_decay_fn=lr_decay_fn)
+                             lr_decay_fn=lr_decay_fn, **optimizer_levers(P))
 
     trainer = StyleGAN2Trainer(
         generator, discriminator, mode=P.mode,
@@ -135,7 +141,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     evaluation = run.Evaluation(P, opt, trainer, logger, use_ema=True)
     first = run.restore(P, trainer, loader, logger, evaluation)
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
-    run.log_start(logger, trainer, opt, first)
+    run.log_start(logger, P, trainer, opt, first)
     logger.log(f"Use G moving average: {accum}")
 
     history = History(logger.logdir)

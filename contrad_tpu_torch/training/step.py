@@ -60,7 +60,9 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def to_float(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """uint8 [0, 255] or float [0, 1] -> ``dtype`` [0, 1]."""
+    """uint8 [0, 255] or float [0, 1] -> ``dtype`` [0, 1]; under a bfloat16
+    compute dtype straight to bfloat16, as the JAX step converts
+    (``step.py:85-94``)."""
     if images.dtype == torch.uint8:
         return images.to(dtype) / 255.0
     return images.to(dtype)
@@ -106,8 +108,11 @@ class GANTrainer:
         self.loss_D, self.loss_G = self.mode.loss_D, self.mode.loss_G
         self.n_critic = n_critic
         self.real_augment = real_augment
-        # the step's image dtype: D's (as the JAX package's image_dtype)
-        self.dtype = next(discriminator.parameters()).dtype
+        # the step's image dtype: D's compute dtype (the JAX package's
+        # image_dtype, step.py:144-147), else its parameters' (float32, or
+        # float64 where the parity tests make the models double)
+        self.dtype = (getattr(discriminator, "dtype", None)
+                      or next(discriminator.parameters()).dtype)
         self.device = next(generator.parameters()).device
         self.rng = AugRng.from_seed(seed, self.device)
         self.n_classes = discriminator.n_classes

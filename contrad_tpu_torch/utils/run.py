@@ -81,6 +81,34 @@ def add_run_args(p) -> None:
                         "this run")
 
 
+def add_precision_args(p) -> None:
+    """The compute dtype and Adam's three storage levers, with the JAX
+    CLIs' choices and defaults (``train_gan.py:77-90``,
+    ``train_stylegan2.py:86-98``); the production configuration is all four
+    at ``bf16``."""
+    p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                   help="model compute dtype (params stay f32; bf16 is the "
+                        "mixed-precision path, loss math stays f32)")
+    p.add_argument("--opt_moments", default="f32", choices=["f32", "bf16"],
+                   help="Adam first-moment storage dtype (params stay f32 "
+                        "masters; bf16 halves mu memory traffic)")
+    p.add_argument("--opt_grads", default="f32", choices=["f32", "bf16"],
+                   help="gradient dtype entering Adam (update math stays "
+                        "f32; nu's g^2 is taken in this dtype)")
+    p.add_argument("--opt_nu", default="f32", choices=["f32", "bf16"],
+                   help="Adam second-moment storage dtype (A/B lever; bf16 "
+                        "risks freezing a warm nu)")
+
+
+def optimizer_levers(P) -> Dict[str, Optional[torch.dtype]]:
+    """``ScheduledAdam``'s storage dtypes for the parsed flags."""
+    from contrad_tpu_torch import reduced_dtype
+
+    return {"mu_dtype": reduced_dtype(P.opt_moments),
+            "nu_dtype": reduced_dtype(P.opt_nu),
+            "grads_dtype": reduced_dtype(P.opt_grads)}
+
+
 def open_run(P, cfg, run_name: str, subdir: str) -> Logger:
     """The run's logger: in ``--resume``'s directory, or in a new one under
     ``<logdir_root>/<subdir>/<run_name><_comment>/`` that gets the
@@ -136,10 +164,12 @@ def restore(P, trainer, loader, logger: Logger,
     return step + 1
 
 
-def log_start(logger: Logger, trainer, opt, first_step: int) -> None:
+def log_start(logger: Logger, P, trainer, opt, first_step: int) -> None:
     n_g = sum(p.numel() for p in trainer.generator.parameters())
     n_d = sum(p.numel() for p in trainer.discriminator.parameters())
     logger.log(f"argv: {' '.join(sys.argv)}")
+    logger.log(f"precision: dtype {P.dtype}, opt_moments {P.opt_moments}, "
+               f"opt_nu {P.opt_nu}, opt_grads {P.opt_grads}")
     logger.log(f"# Params - G: {n_g}, D: {n_d}")
     logger.log(str(opt.to_dict()))
     logger.log(f"device: {trainer.device}")
