@@ -60,7 +60,11 @@ result line:
    torch.profiler breakdown of 3 plain steps (as phase 6's, with the blur's
    ms beside phase 3's launch-weighted sum); then one step of the recipe's
    trainer at batch 4 with R1 on the card against the CPU (same weights,
-   images and draws, TF32 off): losses and both phases' gradients;
+   images and draws, TF32 off): losses and both phases' gradients, each
+   within 1e-4 + 1e-4 * max of the CPU's, with the card taking the CPU's
+   branch at every leaky-ReLU element where the two devices' branches
+   differ, each such pre-activation read on both devices and within that
+   tolerance of 0 (the card's own branches reported beside);
 8. the evaluation path, its runs written under a temporary directory (the
    FID reference statistics too): the conditional flagship (``train_gan
    ... --conditional``, batch 512) on labelled synthetic data for 6 steps
@@ -102,7 +106,32 @@ result line:
    bfloat16 512x512 step with R1 (batch 4) card against CPU (TF32 off) at
    the CPU parity test's tolerance (``tests/test_torch_port_bf16_step.py``:
    losses within 3e-2, each gradient tensor's cosine at least 0.99 or
-   bfloat16's own float32 distance).
+   bfloat16's own float32 distance);
+11. the graph path (``--steps_per_dispatch``: a block of 4 steps as 4
+   replays of the step's CUDA graphs, one graph per step kind, plain and
+   lazy R1; ``contrad_tpu_torch/training/graph.py``) for each README
+   recipe at full width (the flagship at batch 512, the 32x32 StyleGAN2
+   recipe at 64, the 512x512 recipe at 16): from one snapshot of the
+   trainer, two blocks as graph replays, the same steps eagerly, and eagerly
+   again, with cuDNN deterministic, every tensor of the state (parameters,
+   Adam's moments and counts, ``u``, batch-norm statistics, EMA, the
+   generator's state) and the metrics held bitwise where the two eager runs
+   agree bitwise, else within twice their distance and 1e-4 + 1e-4 * max,
+   the generator's state bitwise, the blur launching through the replays as
+   phase 3 counts (the 512x512 run's lazy R1 at step 16, inside its second
+   block; float32, and the 512x512 recipe also under the bf16 stack); a
+   graph run through each CLI checkpointed at step 4 and resumed to 8, held
+   to the uninterrupted one in the same way; each recipe through its CLI
+   eager (``--steps_per_dispatch 1``) and as graphs (``4``) in turns
+   (eager, graph, eager, graph), float32 and the bf16 stack, printed every
+   4 steps: ms/step, img/s, peak memory, capture seconds, the 512x512 R1
+   step, the blur launching as phase 3 counts (warm-up steps included),
+   never on its scalar path, and a profile of one eager and one graph
+   block of plain steps (kernel time by class, idle share); the colour
+   jitter's two orders against one and Adam's device-side schedule, timed,
+   and its bias corrections on the card against the CPU's, the earlier
+   host formula's and the correctly rounded ones; ``--trace_steps 2`` on
+   the 32x32 recipe writing one trace file.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -113,6 +142,7 @@ CUDA card is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -522,33 +552,37 @@ def blur_host_us(blur, calls: int = 200) -> dict:
 LOG_ROOT = None  # the runs' logdir root: a temporary directory (main)
 
 
-def cli_argv(recipe, dataset: str, steps: int, batch=None):
+def cli_argv(recipe, dataset: str, steps: int, batch=None,
+             print_every: int = 1):
     """The train CLI's arguments for ``recipe`` on ``dataset`` at ``batch``
-    (the config's where None) up to step ``steps``, and the batch."""
+    (the config's where None) up to step ``steps``, and the batch. Printing
+    every step resolves ``--steps_per_dispatch`` to 1, the eager step."""
     from contrad_tpu_torch.config import default_config_files, load_config
 
     if batch is None:
         batch = load_config(default_config_files(recipe[0])).options.batch_size
-    return recipe + ["--print_every", "1", "--seed", "0", "--logdir_root",
-                     LOG_ROOT, "--override", f"options.dataset={dataset}",
+    return recipe + ["--print_every", str(print_every), "--seed", "0",
+                     "--logdir_root", LOG_ROOT, "--override",
+                     f"options.dataset={dataset}",
                      f"options.batch_size={batch}",
                      f"options.max_steps={steps}"], batch
 
 
-def run_cli(main, recipe, dataset: str, steps: int, batch=None):
+def run_cli(main, recipe, dataset: str, steps: int, batch=None,
+            print_every: int = 1):
     """``steps`` steps of one of the port's training CLIs (its ``main``)
     with ``recipe`` on ``dataset`` at ``batch`` (the config's where None),
     with the blur's launch counts set to 0 just before and read just after;
     every metric it prints must be finite. Returns its history (with the
     run's logdir and the checkpoints it wrote), the blur's launches (all,
     and on the scalar path), the peak device memory and the ms per step
-    (the mean after the first; the steps' own, checkpoint writes excluded)
-    and img/s."""
+    (the mean of the printed windows after the first; the steps' own,
+    checkpoint writes and graph captures excluded) and img/s."""
     import torch
 
     from contrad_tpu_torch.ops import blur
 
-    argv, batch = cli_argv(recipe, dataset, steps, batch)
+    argv, batch = cli_argv(recipe, dataset, steps, batch, print_every)
     torch.cuda.reset_peak_memory_stats()
     blur.blur2d.launches = blur.blur2d.scalar_launches = 0
     history = main(argv)
@@ -561,7 +595,7 @@ def run_cli(main, recipe, dataset: str, steps: int, batch=None):
     timed = history[1:] or history
     ms_step = 1e3 * sum(r["seconds_per_step"] for r in timed) / len(timed)
     return dict(history=history, logdir=history.logdir, saves=history.saves,
-                batch=batch, launches=launches,
+                dispatch=history.dispatch, batch=batch, launches=launches,
                 scalar_launches=scalar, launches_per_step=launches / steps,
                 ms_per_step=ms_step, img_per_s=batch / (ms_step * 1e-3),
                 peak_bytes=peak)
@@ -811,12 +845,87 @@ class KeepGrads:
         self.grads = [g.detach().clone() for g in grads]
 
 
+class LeakyBranches:
+    """The branches of every leaky ReLU in a step (``F.leaky_relu``, which
+    the StyleGAN2 models' fused bias + leaky ReLU calls), call by call.
+    Under ``record()`` each call keeps which elements take the identity
+    branch (``x > 0``) and its pre-activations within ``MODEL_TOL`` of 0;
+    under ``impose()`` each call takes the recorded branches instead of its
+    own, and every element whose own branch differs is listed in ``flips``
+    with its pre-activation on both devices."""
+
+    def __init__(self):
+        self.calls, self.flips = [], []
+        self._next = 0
+
+    def record(self):
+        return self._patched(self._record)
+
+    def impose(self):
+        self._next = 0
+        return self._patched(self._impose)
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        import torch.nn.functional as F
+
+        plain = F.leaky_relu
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: fn(
+            plain, x, negative_slope)
+        try:
+            yield self
+        finally:
+            F.leaky_relu = plain
+        if fn == self._impose and self._next != len(self.calls):
+            raise AssertionError(f"{self._next} leaky ReLUs imposed, "
+                                 f"{len(self.calls)} recorded")
+
+    def _record(self, plain, x, slope):
+        flat = x.detach().flatten()
+        limit = MODEL_TOL[0] + MODEL_TOL[1] * float(flat.abs().max())
+        near = (flat.abs() <= limit).nonzero().squeeze(1)
+        self.calls.append(dict(shape=tuple(x.shape), limit=limit,
+                               mask=(x.detach() > 0).cpu(), near=near.cpu(),
+                               near_x=flat[near].cpu()))
+        return plain(x, slope)
+
+    def _impose(self, plain, x, slope):
+        import torch
+
+        call = self.calls[self._next]
+        if tuple(x.shape) != call["shape"]:
+            raise AssertionError(f"leaky ReLU {self._next}: shape "
+                                 f"{tuple(x.shape)}, recorded {call['shape']}")
+        mask = call["mask"].to(x.device)
+        flips = ((x.detach() > 0) != mask).flatten().nonzero().squeeze(1)
+        if flips.numel():
+            index, near = flips.cpu(), call["near"]
+            pos = torch.searchsorted(near, index).clamp(max=max(len(near) - 1,
+                                                                0))
+            found = (near[pos] == index) if len(near) else \
+                torch.zeros_like(index, dtype=torch.bool)
+            cpu = torch.where(found, call["near_x"][pos] if len(near) else
+                              torch.zeros(()), torch.tensor(float("nan")))
+            self.flips.append(dict(
+                call=self._next, shape=call["shape"], limit=call["limit"],
+                index=index, card=x.detach().flatten()[flips].cpu(), cpu=cpu))
+        self._next += 1
+        return torch.where(mask, x, x * slope)
+
+
 def sg2_512_card_vs_cpu(batch: int = 4) -> dict:
     """One ``StyleGAN2Trainer`` step of the 512x512 recipe (``stylegan2_512``
     at full width, contrad, ``simclr_hq``, lazy R1 on) on the card and on
     the CPU, from the same weights, images and draws, float32 with TF32
     off: the losses and the gradients of both phases, each tensor within
-    ``MODEL_TOL`` of its largest element on the CPU. Batch 4: the smallest
+    ``MODEL_TOL`` of its largest element on the CPU. A leaky-ReLU
+    pre-activation within rounding of 0 can take the other branch on the
+    card (its convolutions sum in other orders), which moves whole
+    gradients (a bias's, a noise strength's) through one element; so the
+    card's step is run twice: with its own branches (reported), and taking
+    the CPU's branch at every element (``LeakyBranches``), which is held to
+    ``MODEL_TOL``, and where the branches differ, the pre-activation on
+    both devices must lie within ``MODEL_TOL`` of 0. Batch 4: the smallest
     whose D batches (4 and 12 images) minibatch stddev's groups of 4
     divide."""
     import torch
@@ -829,8 +938,12 @@ def sg2_512_card_vs_cpu(batch: int = 4) -> dict:
     hyper = load_config(default_config_files(RECIPE_512[0])).get("augment")
     images = torch.rand(batch, 512, 512, 3,
                         generator=torch.Generator().manual_seed(4))
+    branches, imposed = LeakyBranches(), "card, CPU's branches"
     draws, out = None, {}
-    for device in ("cpu", "cuda"):
+    for run, ctx in (("cpu", branches.record),
+                     ("card", contextlib.nullcontext),
+                     (imposed, branches.impose)):
+        device = "cpu" if run == "cpu" else "cuda"
         G, D = get_architecture("stylegan2_512", (512, 512, 3), device=device,
                                 seed=1)
         g_tx, d_tx = KeepGrads(), KeepGrads()
@@ -842,38 +955,70 @@ def sg2_512_card_vs_cpu(batch: int = 4) -> dict:
         if draws is None:
             draws = trainer.draw_step(images.shape, with_r1=True)
         t0 = time.perf_counter()
-        metrics = trainer.train_step(images.to(device),
-                                     draws=_to(draws, device))
+        with ctx():
+            metrics = trainer.train_step(images.to(device),
+                                         draws=_to(draws, device))
         grads = {f"G.{k}": g for (k, _), g in zip(G.named_parameters(),
                                                    g_tx.grads)}
         grads.update({f"D.{k}": g for (k, _), g in zip(D.named_parameters(),
                                                         d_tx.grads)})
-        out[device] = ({k: v.reshape(1) for k, v in metrics.items()}, grads,
-                       time.perf_counter() - t0)
+        out[run] = ({k: v.reshape(1) for k, v in metrics.items()}, grads,
+                    time.perf_counter() - t0)
         del trainer, G, D
-    worst, failed = {"loss": 0.0, "grad": 0.0}, []
-    for what, i in (("loss", 0), ("grad", 1)):
-        for k, want in out["cpu"][i].items():
-            got = out["cuda"][i][k].cpu()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"512x512 step on the card: {k} is not "
-                                     f"finite")
-            err = float((got - want).abs().max())
-            limit = MODEL_TOL[0] + MODEL_TOL[1] * float(want.abs().max())
-            worst[what] = max(worst[what], err / limit)
-            if what == "loss" or not err <= limit:
-                log(f"  {k:44s} max|card - cpu| {err:.3e} (tol {limit:.3e})")
-            if not err <= limit:
-                failed.append(k)
-    log(f"  {len(out['cpu'][1])} gradient tensors: worst max|card - cpu| at "
-        f"{worst['grad']:.3f} of its tolerance; losses at "
-        f"{worst['loss']:.3f}; step {out['cpu'][2]:.1f} s on the CPU, "
-        f"{out['cuda'][2]:.2f} s on the card (first)")
-    if failed:
-        raise AssertionError(f"512x512 step: card and CPU disagree on "
-                             f"{failed}")
+    worst, beyond = {}, {}
+    for run in ("card", imposed):
+        worst[run], beyond[run] = {"loss": 0.0, "grad": 0.0}, {}
+        for what, i in (("loss", 0), ("grad", 1)):
+            for k, want in out["cpu"][i].items():
+                got = out[run][i][k].cpu()
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"512x512 step on the {run}: {k} "
+                                         f"is not finite")
+                diff = (got - want).abs()
+                err = float(diff.max())
+                limit = MODEL_TOL[0] + MODEL_TOL[1] * float(want.abs().max())
+                worst[run][what] = max(worst[run][what], err / limit)
+                if what == "loss" and run == "card" or not err <= limit:
+                    at = int(diff.flatten().argmax())
+                    log(f"  {run:21s} {k:44s} max|card - cpu| {err:.3e} "
+                        f"(tol {limit:.3e}; at [{at}]: card "
+                        f"{float(got.flatten()[at]):+.5e}, cpu "
+                        f"{float(want.flatten()[at]):+.5e})")
+                if not err <= limit:
+                    beyond[run][k] = err / limit
+        log(f"  {run}: {len(out['cpu'][1])} gradient tensors, worst max|card"
+            f" - cpu| at {worst[run]['grad']:.3f} of its tolerance, "
+            f"{len(beyond[run])} beyond it; losses at "
+            f"{worst[run]['loss']:.3f}")
+    flips = sum(len(f["index"]) for f in branches.flips)
+    elements = sum(math.prod(c["shape"]) for c in branches.calls)
+    far = [f for f in branches.flips
+           if bool(torch.isnan(f["cpu"]).any())
+           or float(f["card"].abs().max()) > f["limit"]]
+    for f in branches.flips:
+        log(f"  leaky ReLU {f['call']} {f['shape']}: {len(f['index'])} "
+            f"elements on the other branch on the card; pre-activation there"
+            f" at most {float(f['card'].abs().max()):.3e} (card), "
+            f"{float(f['cpu'].abs().max()):.3e} (cpu); limit "
+            f"{f['limit']:.3e}")
+    log(f"  {len(branches.calls)} leaky ReLUs, {elements} elements: {flips} "
+        f"take the other branch on the card; step {out['cpu'][2]:.1f} s on "
+        f"the CPU, {out['card'][2]:.2f} s on the card (first)")
+    if far or beyond[imposed]:
+        raise AssertionError(
+            f"512x512 step: card and CPU disagree on {sorted(beyond[imposed])}"
+            f", or their branches differ away from 0 in leaky ReLUs "
+            f"{[f['call'] for f in far]}")
     return dict(batch=batch, worst_fraction_of_tol=worst,
-                cpu_s=out["cpu"][2], card_s=out["cuda"][2])
+                beyond_tol_own_branches=beyond["card"],
+                leaky_relus=len(branches.calls), elements=elements,
+                other_branch=[dict(call=f["call"], shape=f["shape"],
+                                   elements=len(f["index"]),
+                                   card_max=float(f["card"].abs().max()),
+                                   cpu_max=float(f["cpu"].abs().max()),
+                                   limit=f["limit"])
+                              for f in branches.flips],
+                cpu_s=out["cpu"][2], card_s=out["card"][2])
 
 
 # ------------------------------------------------------- the evaluation path
@@ -1722,6 +1867,443 @@ def bf16_phase(per_step, step_sum) -> dict:
         sndcgan=gan, stylegan2_512=sg512), seconds=seconds)
 
 
+# ------------------------------------------------------- the graph path
+
+GRAPH_K = 4  # --steps_per_dispatch of phase 11's graph runs
+# the first step of each recipe's equality run (two blocks of GRAPH_K
+# steps): the 512x512 recipe's lazy R1 (every 16 steps) falls at step 16,
+# the second step of the second block
+EQUAL_FROM = {"sndcgan": 1, "stylegan2_32": 1, "stylegan2_512": 11}
+# each recipe's timed runs: printed every GRAPH_K steps; the 512x512 run's
+# last window holds the R1 step
+TIMED_STEPS = {"sndcgan": 12, "stylegan2_32": 12, "stylegan2_512": 16}
+
+
+def graph_recipes(per_step):
+    """The README recipes of phase 11: name, the module that builds the
+    trainer, the CLI's ``main``, the recipe, its data and batch, and the
+    blur's launches per step of each step kind (phase 3's counts)."""
+    from contrad_tpu_torch import (
+        train_gan, train_stylegan2, train_stylegan2_contraD)
+
+    return (
+        ("sndcgan", train_gan, train_gan.main, FLAGSHIP, "synthetic_32",
+         None, {"plain": 0}),
+        ("stylegan2_32", train_stylegan2, train_stylegan2.main, RECIPE,
+         "synthetic_32", BATCH, {"r1": per_step["stylegan2_32"]}),
+        ("stylegan2_512", train_stylegan2, train_stylegan2_contraD.main,
+         RECIPE_512, DATA_512, BATCH_512,
+         {"plain": per_step["stylegan2_512"],
+          "r1": per_step["stylegan2_512_r1"]}))
+
+
+def trainer_tensors(trainer, metrics):
+    """Every tensor of the trainer's state (G, D, EMA, ``u``, batch-norm
+    statistics, Adam's moments, the generator's state), both optimisers'
+    device and host counts and the metrics, copied."""
+    import torch
+
+    out = flat_tensors(trainer.state_dict())
+    out.update({f"metric.{k}": v for k, v in metrics.items()})
+    for name in ("g_tx", "d_tx"):
+        opt = getattr(trainer, name)
+        out[f"{name}.count_t"] = opt.count_t
+        out[f"{name}.count"] = torch.tensor(opt.count)
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def hold_to_yardstick(eager, graph, again, what: str, spreads=None):
+    """``graph`` against ``eager``, with ``again`` (a second eager run from
+    the same state) as the yardstick of the kernels' own nondeterminism:
+    bitwise where the two eager runs agree bitwise, else within twice their
+    distance (``spreads``, by name, where given) and 1e-4 + 1e-4 * max.
+    Returns the counts and the eager runs' distances."""
+    import torch
+
+    if not (eager.keys() == graph.keys() == again.keys()):
+        raise AssertionError(f"{what}: the runs hold other tensors")
+    out = dict(tensors=len(eager), bitwise=0, eager_bitwise=0, worst=0.0,
+               worst_name=None)
+    dist = {}
+    for name, a in eager.items():
+        b, g = again[name], graph[name]
+        if g.dtype != a.dtype or g.shape != a.shape:
+            raise AssertionError(f"{what}: {name} has another dtype or shape")
+        same = torch.equal(a, b)
+        out["eager_bitwise"] += same
+        if torch.equal(g, a):
+            out["bitwise"] += 1
+            dist[name] = 0.0 if same else float(
+                (b.double() - a.double()).abs().max())
+            continue
+        if same and spreads is None:
+            raise AssertionError(f"{what}: {name} differs from the eager "
+                                 f"run where two eager runs agree bitwise")
+        spread = (float((b.double() - a.double()).abs().max())
+                  if spreads is None else spreads.get(name, 0.0))
+        err = float((g.double() - a.double()).abs().max())
+        scale = float(a.double().abs().max())
+        if err > 2 * spread or err > 1e-4 + 1e-4 * scale:
+            raise AssertionError(f"{what}: {name} {err:.3g} from the eager "
+                                 f"run, the eager runs {spread:.3g} apart")
+        dist[name] = spread
+        if err / max(scale, 1e-30) > out["worst"]:
+            out["worst"], out["worst_name"] = err / max(scale, 1e-30), name
+    rng = [k for k in eager if k.startswith("rng.")]
+    if not rng or any(not torch.equal(graph[k], eager[k]) for k in rng):
+        raise AssertionError(f"{what}: the generator's state differs")
+    return out, dist
+
+
+def graph_trainer(module, recipe, data: str, batch):
+    override = [f"options.dataset={data}"] + (
+        [f"options.batch_size={batch}"] if batch else [])
+    P = module.parse_args(recipe + ["--seed", "0", "--override"] + override)
+    cfg, loader, trainer = module.build(P)
+    return P, cfg.options, loader, trainer
+
+
+def block_args(module, P, opt, steps):
+    """The per-step ``ema_decay`` and ``do_r1`` the CLI gives a block."""
+    return (module.step_args(P, opt.batch_size, steps)
+            if hasattr(module, "step_args") else {})
+
+
+def graph_equality(name, module, recipe, data, batch, kinds, dtype: str):
+    """Two blocks of GRAPH_K steps from one snapshot of the recipe's trainer
+    as CUDA graph replays, as eager steps, and as eager steps again, held to
+    each other (``hold_to_yardstick``), with the blur's launches through
+    the replays as phase 3 counts them and none on the scalar path. Returns
+    the numbers and the eager runs' distances."""
+    import numpy as np
+    import torch
+
+    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.training.graph import (
+        WARMUP_STEPS, BlockRunner, _clone)
+
+    P, opt, loader, trainer = graph_trainer(module, recipe, data, batch)
+    n = 2 * GRAPH_K
+    pairs = [loader.next_indices() for _ in range(n)]
+    idx = [p[0] for p in pairs]
+    labels = [p[1] for p in pairs] if trainer.conditional else None
+    steps = np.arange(EQUAL_FROM[name], EQUAL_FROM[name] + n)
+    args = block_args(module, P, opt, steps)
+    step_kinds = ["r1" if r else "plain"
+                  for r in args.get("do_r1", np.zeros(n, bool))]
+    snapshot = _clone(trainer.state_dict())
+    runs = {}
+    for run, graphs in (("eager", False), ("graph", True), ("again", False)):
+        trainer.load_state_dict(snapshot)
+        runner = BlockRunner(trainer, loader, graphs=graphs)
+        blur.blur2d.launches = blur.blur2d.scalar_launches = 0
+        for b in range(0, n, GRAPH_K):
+            metrics = runner.run(
+                idx[b:b + GRAPH_K],
+                None if labels is None else labels[b:b + GRAPH_K],
+                **{k: v[b:b + GRAPH_K] for k, v in args.items()})
+        torch.cuda.synchronize()
+        runs[run] = (trainer_tensors(trainer, metrics), runner,
+                     blur.blur2d.launches, blur.blur2d.scalar_launches)
+    del snapshot
+    stats = runs["graph"][1].stats
+    replays = sum(kinds[k] for k in step_kinds)
+    warm = sum(WARMUP_STEPS * kinds[k] for k in stats["capture_seconds"])
+    if (stats["captured_launches"] != {k: kinds[k] for k in set(step_kinds)}
+            or stats["replay_launches"] != replays
+            or runs["graph"][2] != replays + warm
+            or runs["eager"][2] != runs["again"][2] != replays
+            or any(r[3] for r in runs.values())):
+        raise AssertionError(
+            f"{name} {dtype}: blur launches {stats} (graph run "
+            f"{runs['graph'][2]}, eager {runs['eager'][2]}, scalar "
+            f"{[r[3] for r in runs.values()]}), not phase 3's {kinds} a "
+            f"step over {step_kinds}")
+    held, dist = hold_to_yardstick(runs["eager"][0], runs["graph"][0],
+                                   runs["again"][0], f"{name} {dtype}")
+    log(f"  {name} {dtype}: graph vs eager over steps {steps[0]}-{steps[-1]}"
+        f" ({step_kinds.count('r1')} with R1): {held['bitwise']} of "
+        f"{held['tensors']} tensors bitwise (the two eager runs agree on "
+        f"{held['eager_bitwise']}); worst relative {held['worst']:.3g} "
+        f"({held['worst_name']}); generator state bitwise; blur through "
+        f"replays {stats['replay_launches']} (captured {stats['captured_launches']}"
+        f", warm-up {warm}), scalar 0; capture "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in
+                    stats["capture_seconds"].items()))
+    del runs, trainer, loader
+    return dict(held, capture_seconds=stats["capture_seconds"],
+                replay_launches=stats["replay_launches"]), dist
+
+
+def block_profile(name, module, recipe, data, batch, graphs: bool):
+    """torch.profiler over one block of GRAPH_K plain steps (R1 on none of
+    them), as graph replays or as eager steps, after a block that warms up
+    (and captures the graph): kernel time by class, the idle share and
+    launches per step (``class_report``)."""
+    import numpy as np
+
+    from contrad_tpu_torch.training.graph import BlockRunner
+
+    P, opt, loader, trainer = graph_trainer(module, recipe, data, batch)
+    runner = BlockRunner(trainer, loader, graphs=graphs)
+    args = block_args(module, P, opt, np.arange(1, GRAPH_K + 1))
+
+    def run_block():
+        block = [loader.next_indices() for _ in range(GRAPH_K)]
+        runner.run([b[0] for b in block], [b[1] for b in block]
+                   if trainer.conditional else None, **args)
+
+    run_block()  # warm-up (and capture)
+    wall, rows = profile_rows(run_block, 1)
+    if not rows:
+        raise AssertionError("the profiler saw no kernel of the block")
+    log(f"  {name}: profile of one {'graph' if graphs else 'eager'} block "
+        f"({GRAPH_K} plain steps), per step:")
+    return class_report(wall / GRAPH_K, [(ms / GRAPH_K, c / GRAPH_K, k)
+                                         for ms, c, k in rows])
+
+
+def graph_resume(name, main, recipe, data, batch, spreads, kinds):
+    """A graph run (K = GRAPH_K) of 8 steps against 4, a checkpoint and
+    ``--resume`` to 8, through the recipe's CLI: the final checkpoints held
+    to each other as ``hold_to_yardstick`` holds a graph run (bitwise, or
+    within twice the eager runs' distance of phase 11's equality run)."""
+    import torch
+
+    from contrad_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    flags = ["--steps_per_dispatch", str(GRAPH_K), "--evaluate_every",
+             str(GRAPH_K), "--no_fid", "--no_gif"]
+    straight = run_cli(main, recipe + flags, data, 8, batch, GRAPH_K)
+    first = run_cli(main, recipe + flags, data, 4, batch, GRAPH_K)
+    resumed = run_cli(main, recipe + flags + ["--resume", first["logdir"]],
+                      data, 8, batch, GRAPH_K)
+    if [r["step"] for r in resumed["history"]] != [8] or any(
+            r["dispatch"]["k"] != GRAPH_K for r in (straight, resumed)):
+        raise AssertionError(f"{name}: the resumed graph run did not take "
+                             f"blocks of {GRAPH_K} from step 5")
+    want = flat_tensors(restore_checkpoint(straight["logdir"]))
+    got = flat_tensors(restore_checkpoint(first["logdir"]))
+    held, _ = hold_to_yardstick(want, got, want, f"{name} resume",
+                                spreads=spreads)
+    log(f"  {name} resumed at step 5 against the uninterrupted graph run: "
+        f"{held['bitwise']} of {held['tensors']} checkpoint tensors bitwise"
+        f"; worst relative {held['worst']:.3g}")
+    torch.cuda.empty_cache()
+    return held
+
+
+def timed_graph_runs(name, main, recipe, data, batch, kinds, flags):
+    """The recipe through its CLI, eager (``--steps_per_dispatch 1``) and
+    graph (``GRAPH_K``) in turns (eager, graph, eager, graph), printed every
+    GRAPH_K steps: ms/step (the windows after the first; the 512x512
+    recipe's plain steps from its middle windows and its R1 step from the
+    last), img/s, peak memory, capture seconds, and the blur launching as
+    phase 3 counts (warm-up steps included), never on its scalar path."""
+    import gc
+
+    import torch
+
+    from contrad_tpu_torch.training.graph import WARMUP_STEPS
+
+    steps = TIMED_STEPS[name]
+    out = {"eager": [], "graph": []}
+    for turn in ("eager", "graph", "eager", "graph"):
+        k = 1 if turn == "eager" else GRAPH_K
+        r = run_cli(main, recipe + flags + ["--steps_per_dispatch", str(k)],
+                    data, steps, batch, GRAPH_K)
+        if r["dispatch"]["k"] != k:
+            raise AssertionError(f"{name}: K resolved to {r['dispatch']['k']}")
+        stats = r["dispatch"]["stats"]
+        if "r1" not in kinds:
+            n_kind = {"plain": steps}
+        elif "plain" not in kinds:
+            n_kind = {"r1": steps}
+        else:  # lazy R1 every 16 steps (the 512x512 recipe)
+            n_kind = {"plain": steps - steps // 16, "r1": steps // 16}
+        want = sum(kinds[kd] * c for kd, c in n_kind.items()) + sum(
+            kinds[kd] * WARMUP_STEPS for kd in stats["capture_seconds"])
+        expect_launches(r, want, f"the {turn} {name} run")
+        h = r["history"]
+        if name == "stylegan2_512":
+            plain = [x["seconds_per_step"] for x in h[1:-1]]
+            r["ms_per_step"] = 1e3 * sum(plain) / len(plain)
+            r["ms_per_r1_step"] = 1e3 * (GRAPH_K * h[-1]["seconds_per_step"]
+                                         - (GRAPH_K - 1) * sum(plain)
+                                         / len(plain))
+            r["img_per_s"] = r["batch"] / (r["ms_per_step"] * 1e-3)
+            if h[-1]["D_r1"] <= 0:
+                raise AssertionError("the last window carries no R1")
+        r["capture_s"] = sum(stats["capture_seconds"].values())
+        extra = (f", R1 step {r['ms_per_r1_step']:.2f} ms"
+                 if "ms_per_r1_step" in r else "")
+        log(f"  {name:13s} {turn:5s} K={k}: {r['ms_per_step']:.2f} ms/step, "
+            f"{r['img_per_s']:.1f} img/s{extra}; peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB; capture {r['capture_s']:.2f}"
+            f" s; blur launches {r['launches']} (scalar "
+            f"{r['scalar_launches']})")
+        out[turn].append({k_: v for k_, v in r.items() if k_ != "history"})
+        del r, h
+        gc.collect()
+        torch.cuda.empty_cache()
+    e = [r["ms_per_step"] for r in out["eager"]]
+    g = [r["ms_per_step"] for r in out["graph"]]
+    log(f"  {name}: eager {min(e):.2f}-{max(e):.2f} ms/step, graph "
+        f"{min(g):.2f}-{max(g):.2f} (graph/eager {sum(g) / sum(e):.3f})")
+    return out
+
+
+def jitter_cost(batch: int = 64, size: int = 512) -> dict:
+    """The colour jitter's two orders (both computed, one selected on the
+    device) against one order, forward and backward on (batch, size, size,
+    3), float32 and bfloat16: ms (CUDA events)."""
+    import torch
+
+    from contrad_tpu_torch.augment import AugRng
+    from contrad_tpu_torch.augment.color import ColorJitter
+
+    jitter = ColorJitter()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.rand(batch, size, size, 3, device="cuda").to(dtype)
+        x.requires_grad_(True)
+        params = jitter.sample(tuple(x.shape), AugRng.from_seed(0, x.device))
+        one = lambda xx: jitter._contrast(jitter._hsv(xx, params), params)
+        both = lambda xx: jitter.apply(xx, params)
+        for which, fn in (("two orders", both), ("one order", one)):
+            out[f"{which} {str(dtype)[6:]}"] = cuda_ms(
+                lambda xx: fn(xx).sum().backward(), [x], iters=10)
+    log("  colour jitter, forward + backward at "
+        f"({batch}, {size}, {size}, 3): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def adam_schedule_cost() -> dict:
+    """``ScheduledAdam.schedule`` (the learning rate from the device count,
+    warmup and half-life decay, and both bias corrections): host us a
+    call, device us a call (CUDA-graph replays) and kernels a call."""
+    import torch
+
+    from contrad_tpu_torch.training.state import ScheduledAdam
+
+    p = torch.nn.Parameter(torch.zeros(8, device="cuda"))
+    opt = ScheduledAdam([p], 2e-3, (0.0, 0.99), warmup=3000,
+                        use_warmup=True,
+                        lr_decay_fn=lambda c: 0.5 ** ((c // 1000) * 1000
+                                                      * 16 / 2e6))
+    call = lambda _: opt.schedule(torch.float32, torch.float32)
+    call(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        call(None)
+    torch.cuda.synchronize()
+    host_us = 1e3 * (time.perf_counter() - t0)
+    _, rows = profile_rows(lambda: call(None), 20)
+    kernels = sum(count for _, count, _ in rows)
+    device_us = 1e3 * cuda_ms(call, [None], iters=100, graph=True)
+    # the bias corrections 1 - b ** t in float32 over the first 200,000
+    # updates at the recipes' betas: float32 ulps between the card's and
+    # the CPU's ``schedule`` (a float exponent), the host formula of earlier
+    # releases (``1 - tensor(b) ** t`` with a Python int t, on the CPU) and
+    # the correctly rounded value (float64 from the float32 beta)
+    n = 200000
+    t = torch.arange(1, n + 1, dtype=torch.float32)
+    ulps = {}
+    for b in (0.5, 0.999, 0.99):
+        bc = {dev: (1.0 - torch.pow(torch.tensor(b, device=dev),
+                                    t.to(dev))).cpu()
+              for dev in ("cuda", "cpu")}
+        beta = torch.tensor(b)
+        bc["host formula"] = torch.tensor(
+            [float(1.0 - beta ** i) for i in range(1, n + 1)])
+        bc["rounded"] = (1.0 - torch.pow(beta.double(), t.double())).float()
+        u = {}
+        for one, other in (("cuda", "cpu"), ("cuda", "host formula"),
+                           ("cuda", "rounded"), ("cpu", "rounded"),
+                           ("host formula", "rounded")):
+            d = (bc[one].view(torch.int32)
+                 - bc[other].view(torch.int32)).abs()
+            u[f"{one} vs {other}".replace("cuda", "card")] = dict(
+                max=int(d.max()), differ=int((d > 0).sum()))
+        ulps[str(b)] = u
+    log(f"  Adam's device-side schedule: {host_us:.1f} us host, "
+        f"{device_us:.2f} us device, {kernels:.0f} kernels a call")
+    for b, u in ulps.items():
+        log(f"    bias corrections, beta {b}, updates 1-{n}: " + "; ".join(
+            f"{k}: {v['differ']} differ, at most {v['max']} ulps"
+            for k, v in u.items()))
+    return dict(host_us=host_us, device_us=device_us, kernels=kernels,
+                bias_correction_ulps=ulps)
+
+
+def graph_phase(per_step) -> dict:
+    """Phase 11: the graph path (``--steps_per_dispatch``, CUDA graphs of
+    the train step) for each README recipe at full width. Returns its
+    numbers."""
+    import gc
+
+    import torch
+
+    t11 = time.perf_counter()
+    phase(f"[11] the graph path: blocks of {GRAPH_K} steps as CUDA graph "
+          f"replays, the flagship at 512, StyleGAN2 32x32 at {BATCH}, "
+          f"512x512 at {BATCH_512}")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    recipes = graph_recipes(per_step)
+    out = {"equality": {}, "resume": {}, "times": {}}
+    phase("  equality: graph against eager from one snapshot, cuDNN "
+          "deterministic (so that the eager runs agree bitwise)")
+    torch.backends.cudnn.deterministic = True
+    spreads = {}
+    for name, module, main, recipe, data, batch, kinds in recipes:
+        for dtype, flags in (("f32", []), ("bf16", BF16_STACK)):
+            if dtype == "bf16" and name != "stylegan2_512":
+                continue
+            out["equality"][f"{name} {dtype}"], dist = graph_equality(
+                name, module, recipe + flags, data, batch, kinds, dtype)
+            if dtype == "f32":
+                spreads[name] = dist
+            gc.collect()
+            torch.cuda.empty_cache()
+    phase("  resume: a graph run checkpointed at step 4 and resumed")
+    for name, module, main, recipe, data, batch, kinds in recipes:
+        out["resume"][name] = graph_resume(name, main, recipe, data, batch,
+                                           spreads[name], kinds)
+    torch.backends.cudnn.deterministic = False
+    phase("  times: eager and graph in turns, float32 and the bf16 stack, "
+          "and a profile of one eager and one graph block")
+    out["profiles"] = {}
+    for name, module, main, recipe, data, batch, kinds in recipes:
+        for dtype, flags in (("f32", []), ("bf16", BF16_STACK)):
+            out["times"][f"{name} {dtype}"] = timed_graph_runs(
+                name, main, recipe, data, batch, kinds, flags)
+            for run in ("eager", "graph"):
+                out["profiles"][f"{name} {dtype} {run}"] = block_profile(
+                    f"{name} {dtype}", module, recipe + flags, data, batch,
+                    graphs=run == "graph")
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["jitter"] = jitter_cost()
+    out["adam_schedule"] = adam_schedule_cost()
+    phase("  --trace_steps 2 on the 32x32 recipe")
+    from contrad_tpu_torch import train_stylegan2
+
+    r = run_cli(train_stylegan2.main, RECIPE + ["--trace_steps", "2"],
+                "synthetic_32", 4, BATCH, GRAPH_K)
+    traces = sorted(Path(r["logdir"], "profile").glob("*.json"))
+    if r["dispatch"]["k"] != 1 or len(traces) != 1:
+        raise AssertionError(f"--trace_steps 2: K {r['dispatch']['k']}, "
+                             f"trace files {traces}")
+    out["trace_bytes"] = traces[0].stat().st_size
+    log(f"  trace {traces[0].name}: {out['trace_bytes'] / 2**20:.2f} MiB; "
+        f"K = 1")
+    out["seconds"] = time.perf_counter() - t11
+    log(f"  phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1860,6 +2442,7 @@ def main() -> int:
     phase8 = evaluation_phase(train_gan, train_stylegan2, per_step, flagship)
     phase9 = inception_phase(phase8["stylegan2"]["sample_dir"])
     phase10 = bf16_phase(per_step, step_sum)
+    phase11 = graph_phase(per_step)
     logs.cleanup()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
@@ -1880,7 +2463,13 @@ def main() -> int:
             **phase8["launches"],
             **{f"{name} bf16 (phase 10, run {i + 1})": r["launches"]
                for name, turns in phase10["runs"].items()
-               for i, r in enumerate(turns["bf16"])}},
+               for i, r in enumerate(turns["bf16"])},
+            **{f"{name} through graph replays (phase 11, 2 blocks of "
+               f"{GRAPH_K})": r["replay_launches"]
+               for name, r in phase11["equality"].items()},
+            **{f"{name} graph run {i + 1} (phase 11, with warm-up)":
+               r["launches"] for name, turns in phase11["times"].items()
+               for i, r in enumerate(turns["graph"])}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
                                   sndcgan_conditional=0)}]
     total_s = time.perf_counter() - T0
@@ -1900,7 +2489,8 @@ def main() -> int:
                          tf32="convs on, matmuls off (card vs CPU: off)"),
             stylegan2_512=dict(train=run512, profile=prof512,
                                card_vs_cpu=check512),
-            evaluation=phase8, inception=phase9, bf16=phase10),
+            evaluation=phase8, inception=phase9, bf16=phase10,
+            graphs=phase11),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

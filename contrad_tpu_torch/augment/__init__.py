@@ -5,9 +5,9 @@
 
 An augmentation has ``sample(shape, rng) -> params`` and
 ``apply(x, params) -> images`` (NHWC float in [0, 1]).
-``rng`` is an :class:`AugRng`: a generator on the images' device for the
-per-sample draws and a CPU generator for the per-batch choices that steer
-Python control flow.
+``rng`` is an :class:`AugRng`: a generator on the images' device, for every
+draw (per-sample parameters and per-batch choices alike, so that no draw
+steers Python control flow and a step can be captured in a CUDA graph).
 
   simclr            = RRC -> HFlip -> RandomApply(Jitter, .8) -> RandomApply(Gray, .2)
   simclr_hq         = simclr + RandomApply(Blur, .5)
@@ -31,16 +31,13 @@ from contrad_tpu_torch.augment.spatial import (
 
 @dataclasses.dataclass
 class AugRng:
-    device: torch.Generator  # per-sample draws, on the images' device
-    host: torch.Generator  # per-batch choices, on the CPU
+    device: torch.Generator  # every draw, on the images' device
 
     @classmethod
     def from_seed(cls, seed: int, device: torch.device) -> "AugRng":
         dev = torch.Generator(device=device)
         dev.manual_seed(seed)
-        host = torch.Generator()
-        host.manual_seed(seed + 1)
-        return cls(dev, host)
+        return cls(dev)
 
 
 class NoAugment:

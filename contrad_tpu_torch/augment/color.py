@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from contrad_tpu_torch.augment.spatial import Params, _uniform
+from contrad_tpu_torch.ops import device_constant
 
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)
 
@@ -36,7 +37,7 @@ def hsv2rgb(hsv: torch.Tensor) -> torch.Tensor:
     """Branchless HSV->RGB (reference augment/utils.py:41-62)."""
     h, s, v = hsv[..., 0:1], hsv[..., 1:2], hsv[..., 2:3]
     c = v * s
-    n = torch.tensor([5.0, 3.0, 1.0], dtype=hsv.dtype, device=hsv.device)
+    n = device_constant((5.0, 3.0, 1.0), hsv.dtype, hsv.device)
     k = torch.remainder(n + h * 6.0, 6.0)
     t = torch.clamp(torch.minimum(k, 4.0 - k), 0.0, 1.0)
     return v - c * t
@@ -82,9 +83,11 @@ def _check_range(value, name, center=1.0, bound=(0.0, float("inf")),
 class ColorJitter:
     """Per-sample brightness/contrast/saturation/hue jitter (reference
     ColorJitterLayer): contrast in RGB space, B/S/H jointly in HSV space, the
-    two applied in an order drawn once per batch. The order is drawn from
-    ``rng.host`` (a CPU generator), so choosing it never waits on the
-    device."""
+    two applied in an order drawn once per batch. The order is a device
+    bool drawn from ``rng.device`` (JAX draws it on the device and picks
+    with ``lax.cond``): ``apply`` computes both orders and selects one with
+    ``torch.where``, so no host branch reads it and a step captured in a
+    CUDA graph draws it anew at each replay."""
 
     def __init__(self, brightness=0.4, contrast=0.4, saturation=0.4, hue=0.1):
         self.b_range = _check_range(brightness, "brightness")
@@ -102,7 +105,7 @@ class ColorJitter:
             return _uniform((n,), rng, *rng_range)
 
         return {
-            "contrast_first": bool(torch.rand((), generator=rng.host) < 0.5),
+            "contrast_first": _uniform((), rng) < 0.5,
             "contrast": draw(self.c_range, 1.0),
             "f_h": draw(self.h_range, 0.0),
             "f_s": draw(self.s_range, 1.0),
@@ -121,9 +124,9 @@ class ColorJitter:
         return _HSVAdjust.apply(x, *f)
 
     def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
-        if params["contrast_first"]:
-            return self._hsv(self._contrast(x, params), params)
-        return self._contrast(self._hsv(x, params), params)
+        return torch.where(params["contrast_first"],
+                           self._hsv(self._contrast(x, params), params),
+                           self._contrast(self._hsv(x, params), params))
 
 
 class Grayscale:
@@ -133,7 +136,7 @@ class Grayscale:
         return {}
 
     def apply(self, x: torch.Tensor, params: Params) -> torch.Tensor:
-        w = torch.tensor(_GRAY_WEIGHTS, dtype=x.dtype, device=x.device)
+        w = device_constant(_GRAY_WEIGHTS, x.dtype, x.device)
         return (x * w).sum(dim=-1, keepdim=True).expand(x.shape)
 
 

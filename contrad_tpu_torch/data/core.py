@@ -6,8 +6,8 @@ The whole uint8 train set is copied to the device once; each step gathers
 its batch there from an index vector, so no pixels cross the host link
 after set-up. Epoch semantics match the JAX package: a seeded reshuffle per
 epoch (``numpy.random.default_rng((seed, epoch))``) and drop-last. With
-``with_labels`` the stream yields ``(images, labels)``, the int64 labels
-device-resident beside the images. Its position (epoch and row) is a
+``with_labels`` the stream yields ``(images, labels)``, the batch's int64
+labels copied to the device beside it. Its position (epoch and row) is a
 ``state_dict``, so a resumed run reads the batches an uninterrupted run
 would have read.
 """
@@ -48,7 +48,14 @@ class ArrayDataset:
 
 class DeviceBatchIterator:
     """Infinite stream of shuffled uint8 NHWC batches gathered on the device
-    (with ``with_labels``, ``(images, labels)`` pairs)."""
+    (with ``with_labels``, ``(images, labels)`` pairs). Like the JAX
+    package's device-resident loader it also hands out index vectors
+    (``next_indices``) that a caller gathers itself (``materialize``): a
+    block of steps moves only its index vectors to the device."""
+
+    # the rows an index vector names are rows of ``images``, the whole set
+    supports_indexed = True
+    local_indexing = False
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, seed: int = 0,
                  start_epoch: int = 0, device: str | torch.device = "cuda",
@@ -63,10 +70,10 @@ class DeviceBatchIterator:
         self.n = len(dataset)
         self._order = None
         self._pos = 0
+        self.with_labels = with_labels
+        self._labels = np.asarray(dataset.labels, np.int64)
         self.images = torch.from_numpy(np.ascontiguousarray(dataset.images)).to(
             self.device)
-        self.labels = (torch.from_numpy(np.asarray(dataset.labels, np.int64)).to(
-            self.device) if with_labels else None)
 
     def state_dict(self) -> dict:
         return {"epoch": self.epoch, "pos": self._pos,
@@ -79,8 +86,9 @@ class DeviceBatchIterator:
         self._order = (np.random.default_rng((self.seed, self.epoch))
                        .permutation(self.n) if state["started"] else None)
 
-    def next_indices(self) -> np.ndarray:
-        """Advance the stream by one batch and return its dataset rows."""
+    def next_indices(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Advance the stream by one batch and return its dataset rows
+        (int32) and their labels, both on the host."""
         if self._order is None or self._pos + self.batch_size > self.n:
             if self._order is not None:
                 self.epoch += 1
@@ -89,15 +97,21 @@ class DeviceBatchIterator:
             self._pos = 0
         idx = self._order[self._pos: self._pos + self.batch_size]
         self._pos += self.batch_size
-        return idx
+        return idx.astype(np.int32), self._labels[idx]
+
+    def materialize(self, idx) -> torch.Tensor:
+        """The images of rows ``idx`` (host or device), gathered on the
+        device."""
+        idx = torch.as_tensor(idx).to(self.device, torch.int64,
+                                      non_blocking=True)
+        return self.images.index_select(0, idx)
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        idx = torch.from_numpy(self.next_indices()).to(self.device,
-                                                       non_blocking=True)
-        images = self.images.index_select(0, idx)
-        if self.labels is None:
+        idx, labels = self.next_indices()
+        images = self.materialize(idx)
+        if not self.with_labels:
             return images
-        return images, self.labels.index_select(0, idx)
+        return images, torch.from_numpy(labels).to(self.device)

@@ -38,6 +38,8 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from contrad_tpu_torch.ops import device_constant
+
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "blur2d.cu"
 _BUILD_DIR = _PKG / "_build"
@@ -186,8 +188,8 @@ def blur2d_plain(x: torch.Tensor, taps_v: Sequence[float],
     acc = torch.promote_types(x.dtype, torch.float32)
     xc = x.permute(0, 3, 1, 2).to(acc)
     xc = F.pad(xc, (pad[0], pad[1], pad[0], pad[1]))
-    wv = torch.tensor(taps_v, dtype=acc, device=x.device)
-    wh = torch.tensor(taps_h, dtype=acc, device=x.device)
+    wv = device_constant(tuple(taps_v), acc, x.device)
+    wh = device_constant(tuple(taps_h), acc, x.device)
     xc = F.conv2d(xc, wv.view(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
     xc = F.conv2d(xc, wh.view(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
     return xc.to(x.dtype).permute(0, 2, 3, 1)

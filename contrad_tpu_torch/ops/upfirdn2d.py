@@ -11,6 +11,7 @@ symmetric).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from contrad_tpu_torch.ops import blur as _blur
+from contrad_tpu_torch.ops import device_constant
 
 
 def make_kernel(k: Sequence[float]) -> np.ndarray:
@@ -46,12 +48,25 @@ def separate(kernel: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return col.astype(np.float32), row.astype(np.float32)
 
 
-def _depthwise(x: torch.Tensor, w: np.ndarray, stride: Tuple[int, int]):
+@functools.lru_cache(maxsize=None)
+def _filters(kernel: Tuple[Tuple[float, ...], ...], down: int):
+    """The depthwise passes of a (kh, kw) kernel, found once per kernel and
+    ``down``: its column and row factors where it is separable, else the
+    kernel itself; each as (taps, filter shape, stride)."""
+    k = np.asarray(kernel, np.float32)
+    if _is_separable(k):
+        col, row = separate(k)
+        return ((tuple(col.tolist()), (len(col), 1), (down, 1)),
+                (tuple(row.tolist()), (1, len(row)), (1, down)))
+    return ((tuple(k.ravel().tolist()), k.shape, (down, down)),)
+
+
+def _depthwise(x: torch.Tensor, taps: Tuple[float, ...],
+               shape: Tuple[int, int], stride: Tuple[int, int]):
     """Depthwise correlation of an NCHW tensor with one (kh, kw) filter."""
-    c = x.shape[1]
-    wt = torch.as_tensor(w, dtype=x.dtype, device=x.device)
-    wt = wt[None, None].expand(c, 1, *w.shape)
-    return F.conv2d(x, wt, stride=stride, groups=c)
+    wt = device_constant(taps, x.dtype, x.device).view(shape)
+    wt = wt[None, None].expand(x.shape[1], 1, *shape)
+    return F.conv2d(x, wt, stride=stride, groups=x.shape[1])
 
 
 def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
@@ -67,12 +82,9 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
         z[:, :, :, 0, :, 0] = xc
         xc = z.reshape(n, c, h * up, w * up)
     xc = F.pad(xc, (pad[0], pad[1], pad[0], pad[1]))
-    if _is_separable(kernel):
-        col, row = separate(kernel)
-        xc = _depthwise(xc, col[:, None], (down, 1))
-        xc = _depthwise(xc, row[None, :], (1, down))
-    else:
-        xc = _depthwise(xc, np.asarray(kernel, np.float32), (down, down))
+    key = tuple(map(tuple, np.asarray(kernel, np.float32).tolist()))
+    for taps, shape, stride in _filters(key, down):
+        xc = _depthwise(xc, taps, shape, stride)
     return xc.permute(0, 2, 3, 1)
 
 

@@ -25,14 +25,16 @@ included, as in the JAX CLI. It runs on the card; ``--device cpu`` runs it
 on the CPU. ``--dtype bf16`` computes in bfloat16 (parameters stay
 float32 masters, the loss math float32) and ``--opt_moments``, ``--opt_nu``
 and ``--opt_grads`` set Adam's storage dtypes; the production
-configuration is all four at ``bf16``. Multi-step dispatch is not ported
-yet.
+configuration is all four at ``bf16``. ``--steps_per_dispatch K`` runs K
+steps a dispatch, as CUDA graph replays on the card (0, the default, picks
+the largest K <= 16 that divides every cadence; 1 is the eager step), and
+``--trace_steps N`` writes a torch.profiler trace of N steps under
+``<logdir>/profile`` (``utils/run.py::train``).
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -131,36 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     first = run.restore(P, trainer, loader, logger, evaluation)
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
     run.log_start(logger, P, trainer, opt, first)
-
-    history = History(logger.logdir)
-    sync = run.cuda_sync(trainer.device)
-    t0, steps = time.perf_counter(), 0
-    for step in range(first, opt.max_steps + 1):
-        if P.conditional:
-            images, labels = next(loader)
-            metrics = trainer.train_step(images, labels=labels)
-        else:
-            images = next(loader)
-            metrics = trainer.train_step(images)
-        steps += 1
-        if step % P.print_every == 0:
-            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-            sync()
-            dt = time.perf_counter() - t0
-            logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
-                       % (step, m["G_loss"], m["D_loss"], steps
-                          * opt.batch_size * opt.n_critic / max(dt, 1e-9)))
-            print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
-            for name, value in m.items():
-                logger.scalar_summary("gan/train/" + name, value, step)
-            history.append(dict(m, step=step, seconds_per_step=dt / steps))
-            t0, steps = time.perf_counter(), 0
-        if step % P.evaluate_every == 0:
-            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta,
-                               evaluation, images)
-    logger.log("Training finished.")
-    logger.close()
-    return history
+    return run.train(P, opt, trainer, loader, logger, evaluation, meta, first)
 
 
 if __name__ == "__main__":

@@ -18,17 +18,19 @@ to the first critic sub-step, with the config's ``lbd`` and ``lbd2``. It
 runs on the card; ``--device cpu`` runs it on the CPU. ``--dtype``,
 ``--opt_moments``, ``--opt_nu`` and ``--opt_grads`` are ``train_gan``'s
 (the production configuration: all four ``bf16``). The port has no packed
-layouts, so it takes no ``--no_packed_aug``.
+layouts, so it takes no ``--no_packed_aug``. ``--steps_per_dispatch`` and
+``--trace_steps`` are ``train_gan``'s; in a block of K steps the lazy R1 and
+the EMA gate are per-step vectors, and each step replays the CUDA graph of
+its kind (plain, or with R1).
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 from pathlib import Path
 from typing import Optional, Sequence
 
-import torch
+import numpy as np
 
 from contrad_tpu_torch.utils.run import (
     History, add_precision_args, add_run_args)
@@ -118,6 +120,21 @@ def build(P: argparse.Namespace):
     return cfg, loader, trainer
 
 
+def ema_accum(P, batch_size: int) -> float:
+    """The EMA decay of a step once the gate is open (reference
+    ``train_stylegan2.py:154``)."""
+    return 0.5 ** (batch_size / (P.halflife_k * 1000))
+
+
+def step_args(P, batch_size: int, steps: np.ndarray) -> dict:
+    """The lazy-R1 flag and the EMA decay of each step in ``steps`` (JAX's
+    ``r1_block`` and ``ema`` vectors, ``train_stylegan2.py:387-396``),
+    for the parsed arguments after ``build``."""
+    return dict(do_r1=(steps % P.d_reg_every == 0) & (P.lbd_r1 > 0),
+                ema_decay=np.where(steps * batch_size > P.ema_start_k * 1000,
+                                   ema_accum(P, batch_size), 0.0))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> History:
     """Train up to ``options.max_steps`` steps; returns the
     :class:`~contrad_tpu_torch.utils.run.History`: one record per printed
@@ -129,7 +146,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     P = parse_args(argv)
     cfg, loader, trainer = build(P)
     opt = cfg.options
-    accum = 0.5 ** (opt.batch_size / (P.halflife_k * 1000))
+    accum = ema_accum(P, opt.batch_size)
     desc = f"R{P.lbd_r1}_mix{P.style_mix}_H{P.halflife_k}"
     if P.halflife_lr > 0:
         desc += f"_lr{P.halflife_lr / 1e6:.1f}M"
@@ -144,37 +161,8 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     run.log_start(logger, P, trainer, opt, first)
     logger.log(f"Use G moving average: {accum}")
 
-    history = History(logger.logdir)
-    sync = run.cuda_sync(trainer.device)
-    t0, steps = time.perf_counter(), 0
-    for step in range(first, opt.max_steps + 1):
-        do_r1 = step % P.d_reg_every == 0 and P.lbd_r1 > 0
-        do_ema = step * opt.batch_size > P.ema_start_k * 1000
-        images = next(loader)
-        metrics = trainer.train_step(
-            images, ema_decay=accum if do_ema else 0.0, do_r1=do_r1)
-        steps += 1
-        if step % P.print_every == 0:
-            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-            sync()
-            dt = time.perf_counter() - t0
-            logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
-                       % (step, m["G_loss"], m["D_loss"],
-                          steps * opt.batch_size / max(dt, 1e-9)))
-            print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
-            for name, value in m.items():
-                logger.scalar_summary("gan/train/" + name, value, step)
-            history.append(dict(m, step=step, seconds_per_step=dt / steps))
-            t0, steps = time.perf_counter(), 0
-        if step % P.evaluate_every == 0:
-            t0 += run.evaluate(P, logger, history, trainer, loader, step, meta,
-                               evaluation, images)
-    if trainer.device.type == "cuda":
-        logger.log(f"peak device memory: "
-                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    logger.log("Training finished.")
-    logger.close()
-    return history
+    return run.train(P, opt, trainer, loader, logger, evaluation, meta, first,
+                     lambda steps: step_args(P, opt.batch_size, steps))
 
 
 if __name__ == "__main__":

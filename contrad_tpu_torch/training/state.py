@@ -3,20 +3,17 @@
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 _EPS = 1e-8
 
 
-def _bias_correction(decay: float, count: int, dtype: torch.dtype) -> float:
-    """optax's ``1 - decay ** count``, taken in float32 (or wider) and
-    rounded to the moment's dtype, which is what the moment is divided by."""
-    wide = torch.promote_types(dtype, torch.float32)
-    bc = 1.0 - torch.tensor(decay, dtype=wide) ** count
-    return float(bc.to(dtype))
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never, where
+    PyTorch has no CUDA)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 class ScheduledAdam:
@@ -36,6 +33,15 @@ class ScheduledAdam:
       * ``grads_dtype``: gradients are cast to this dtype before anything
         else, so ``g²`` is taken in it.
 
+    The update count lives on the device (``count_t``, int32 as optax's),
+    and the learning rate and both bias corrections are computed there from
+    it, inside ``step``: the eager step and its CUDA graph
+    (``training/graph.py``) run this one code path, and nothing in it reads
+    a device value on the host. ``lr_decay_fn`` takes that count and
+    returns a float32 tensor (or a number). ``count`` is the host mirror
+    that ``state_dict`` saves: ``step`` advances it outside a graph capture,
+    the graph's runner once for each replay.
+
     Each product and sum runs in the dtype that JAX's promotion gives it
     (a bfloat16 term times a Python scalar stays bfloat16; bfloat16 plus
     float32 is float32), so the stored moments are bit for bit those of
@@ -47,7 +53,7 @@ class ScheduledAdam:
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  beta: Tuple[float, float], warmup: int = 0,
                  use_warmup: bool = False,
-                 lr_decay_fn: Optional[Callable[[int], float]] = None,
+                 lr_decay_fn: Optional[Callable[[torch.Tensor], Any]] = None,
                  mu_dtype: Optional[torch.dtype] = None,
                  nu_dtype: Optional[torch.dtype] = None,
                  grads_dtype: Optional[torch.dtype] = None):
@@ -57,20 +63,41 @@ class ScheduledAdam:
         self.warmup = warmup if use_warmup else 0
         self.lr_decay_fn = lr_decay_fn
         self.grads_dtype, self.nu_dtype = grads_dtype, nu_dtype
-        self.count = 0
+        device = self.params[0].device
+        # the update count, int32 as optax keeps it, on the device: the
+        # learning rate and the bias corrections are taken from it there,
+        # so a step captured in a CUDA graph reads the count of each replay
+        self.count_t = torch.zeros((), dtype=torch.int32, device=device)
+        self.count = 0  # its host mirror, for state_dict
+        # the betas in float32, or the parameters' wider dtype, where the
+        # bias corrections are taken
+        wide = torch.promote_types(self.params[0].dtype, torch.float32)
+        self.b1_t = torch.full((), self.b1, dtype=wide, device=device)
+        self.b2_t = torch.full((), self.b2, dtype=wide, device=device)
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=nu_dtype or p.dtype)
                    for p in self.params]
 
-    def lr_at(self, count: int) -> float:
-        lr = np.float32(self.lr)
+    def lr_at(self, count: torch.Tensor) -> torch.Tensor:
+        """The float32 learning rate at ``count`` (a device int32 scalar),
+        as optax's schedule computes it."""
+        lr = torch.full((), self.lr, device=count.device)
         if self.warmup > 0:
-            lr *= np.minimum(np.float32(1.0), np.float32(count + 1.0)
-                             / np.float32(self.warmup))
+            lr = lr * torch.clamp((count + 1.0) / self.warmup, max=1.0)
         if self.lr_decay_fn is not None:
-            lr *= np.float32(self.lr_decay_fn(count))
-        return float(lr)
+            lr = lr * self.lr_decay_fn(count)
+        return lr
+
+    def schedule(self, mu_dtype: torch.dtype, nu_dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The next update's learning rate and optax's bias corrections
+        ``1 - decay ** t`` (taken in float32, or wider, and rounded to each
+        moment's dtype), from the device count."""
+        t = (self.count_t + 1).to(self.b1_t.dtype)
+        bc1 = (1.0 - torch.pow(self.b1_t, t)).to(mu_dtype)
+        bc2 = (1.0 - torch.pow(self.b2_t, t)).to(nu_dtype)
+        return self.lr_at(self.count_t), bc1, bc2
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -96,11 +123,11 @@ class ScheduledAdam:
             torch._foreach_add_(nu, g2)
         else:
             nu = self._accumulate(self.nu, b2, g2)
-        t = self.count + 1
         self._store(self.mu, mu)
         self._store(self.nu, nu)
-        update = torch._foreach_div(mu, _bias_correction(b1, t, mu[0].dtype))
-        den = torch._foreach_div(nu, _bias_correction(b2, t, nu[0].dtype))
+        lr, bc1, bc2 = self.schedule(mu[0].dtype, nu[0].dtype)
+        update = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, _EPS)
         if torch.promote_types(update[0].dtype, den[0].dtype) \
@@ -108,9 +135,11 @@ class ScheduledAdam:
             torch._foreach_div_(update, den)
         else:  # a bfloat16 first moment over the float32 denominator
             update = torch._foreach_div(update, den)
-        torch._foreach_mul_(update, -self.lr_at(self.count))
+        torch._foreach_mul_(update, -lr)
         torch._foreach_add_(self.params, update)
-        self.count = t
+        self.count_t.add_(1)
+        if not capturing():  # a graph's replays are counted by its runner
+            self.count += 1
 
     @staticmethod
     def _accumulate(stored: List[torch.Tensor], decay: float,
@@ -155,6 +184,7 @@ class ScheduledAdam:
             raise ValueError(f"the state holds {n} parameters, this "
                              f"optimiser {len(self.params)}")
         self.count = int(state["count"])
+        self.count_t.fill_(self.count)
         for i, entry in adam["state"].items():
             self.mu[int(i)].copy_(entry["exp_avg"])
             self.nu[int(i)].copy_(entry["exp_avg_sq"])
@@ -162,12 +192,20 @@ class ScheduledAdam:
 
 @torch.no_grad()
 def ema_update(ema: torch.nn.Module, model: torch.nn.Module,
-               decay: float) -> None:
+               decay: torch.Tensor | float) -> None:
     """In place: ``e = e * decay + p * (1 - decay)`` over all parameters
     (reference ``utils.py:130-143`` accumulate), and the buffers (G's batch
-    norm statistics) copied, as the JAX trainers copy G's state."""
+    norm statistics) copied, as the JAX trainers copy G's state. ``decay``
+    is a device scalar (a step captured in a CUDA graph reads each replay's
+    there), or a number, taken in float32 (or the parameters' wider
+    dtype)."""
     e = list(ema.parameters())
+    p = list(model.parameters())
+    if not isinstance(decay, torch.Tensor):
+        decay = torch.full((), decay, device=e[0].device,
+                           dtype=torch.promote_types(e[0].dtype,
+                                                     torch.float32))
     torch._foreach_mul_(e, decay)
-    torch._foreach_add_(e, list(model.parameters()), alpha=1.0 - decay)
+    torch._foreach_add_(e, torch._foreach_mul(p, 1.0 - decay))
     for eb, b in zip(ema.buffers(), model.buffers(), strict=True):
         eb.copy_(b)

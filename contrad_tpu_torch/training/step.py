@@ -126,15 +126,14 @@ class GANTrainer:
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs of the trainer: G, D and the EMA G
         with their buffers (spectral norm's ``u``, G's batch-norm
-        statistics), both optimisers and both random streams."""
+        statistics), both optimisers and the random stream."""
         return {"generator": self.generator.state_dict(),
                 "discriminator": self.discriminator.state_dict(),
                 "g_ema": (None if self.g_ema is None
                           else self.g_ema.state_dict()),
                 "g_optimizer": self.g_tx.state_dict(),
                 "d_optimizer": self.d_tx.state_dict(),
-                "rng": {"device": self.rng.device.get_state(),
-                        "host": self.rng.host.get_state()}}
+                "rng": {"device": self.rng.device.get_state()}}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.generator.load_state_dict(state["generator"])
@@ -144,7 +143,6 @@ class GANTrainer:
         self.g_tx.load_state_dict(state["g_optimizer"])
         self.d_tx.load_state_dict(state["d_optimizer"])
         self.rng.device.set_state(state["rng"]["device"].cpu())
-        self.rng.host.set_state(state["rng"]["host"].cpu())
 
     # ------------------------------------------------------------- draws
 
@@ -216,13 +214,15 @@ class GANTrainer:
 
     # ------------------------------------------------------------- train
 
-    def train_step(self, images: torch.Tensor, ema_decay: float = 0.0,
+    def train_step(self, images: torch.Tensor,
+                   ema_decay: float | torch.Tensor = 0.0,
                    draws: Optional[StepDraws] = None,
                    labels: Optional[torch.Tensor] = None) -> Metrics:
         """One step on ``n_critic`` real batches (uint8 or float NHWC on the
         device, stacked) and, for a conditional D, their ``labels``;
         returns the last D sub-step's metrics and ``G_loss``, detached,
-        still on the device."""
+        still on the device. ``ema_decay`` is a number or a device scalar
+        (a CUDA graph of the step reads each replay's there)."""
         if self.conditional and labels is None:
             raise ValueError("the discriminator has n_classes > 1: pass labels")
         images = to_float(images, self.dtype)
@@ -313,7 +313,8 @@ class StyleGAN2Trainer(GANTrainer):
         return draws._replace(critic=[(None, first)] + others,
                               r1=self.draw_aug(batch) if with_r1 else None)
 
-    def train_step(self, images: torch.Tensor, ema_decay: float = 0.0,
+    def train_step(self, images: torch.Tensor,
+                   ema_decay: float | torch.Tensor = 0.0,
                    do_r1: bool = False, draws: Optional[StepDraws] = None
                    ) -> Metrics:
         """One step on ``n_critic`` real batches (uint8 or float NHWC on the

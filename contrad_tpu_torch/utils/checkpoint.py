@@ -4,7 +4,7 @@ One ``torch.save`` file per checkpoint, ``<logdir>/ckpt/<name>.pt``, holding
 what the JAX package's train state holds: G, D and the EMA G with their
 buffers (spectral norm's ``u``, G's batch-norm statistics), both optimiser
 states (Adam's moments and the update count the warmup reads), the step, the
-random streams (both generators of the trainer's ``AugRng``) and the data
+random stream (the device generator of the trainer's ``AugRng``) and the data
 stream's epoch and position; and what the run is (``meta``: architecture
 and number of classes), so that an evaluation CLI can rebuild its models.
 Names:

@@ -1,4 +1,5 @@
 """What the train CLIs share around the train step: the run directory, the
+train loop (:func:`train`: multi-step dispatch and ``--trace_steps``), the
 evaluation at every ``--evaluate_every`` steps with its checkpoints,
 ``--resume`` and ``--finetune`` (the JAX CLIs' ``train_gan.py:203-447`` and
 ``train_stylegan2.py:237-478``).
@@ -41,17 +42,20 @@ from contrad_tpu_torch.utils.logger import Logger
 
 class History(list):
     """A train CLI's result: one record per printed step (its metrics and
-    the wall seconds per step since the last print), the run directory
-    ``logdir``, the checkpoints it wrote (``saves``: name, step, bytes,
-    seconds) and its evaluations (``evals``: step, seconds, and the FID
-    score, the best so far, whether it is the best and the seconds of the
-    FID trials where FID ran)."""
+    the wall seconds per step since the last print, over every step of the
+    blocks in between), the run directory ``logdir``, the checkpoints it
+    wrote (``saves``: name, step, bytes, seconds), its evaluations
+    (``evals``: step, seconds, and the FID score, the best so far, whether
+    it is the best and the seconds of the FID trials where FID ran) and its
+    multi-step dispatch (``dispatch``: K, and the graph runner's ``stats``:
+    warm-up steps, capture seconds, launches and replays per step kind)."""
 
     def __init__(self, logdir: str):
         super().__init__()
         self.logdir = logdir
         self.saves: List[Dict[str, Any]] = []
         self.evals: List[Dict[str, Any]] = []
+        self.dispatch: Dict[str, Any] = {}
 
 
 def add_run_args(p) -> None:
@@ -79,6 +83,16 @@ def add_run_args(p) -> None:
     p.add_argument("--finetune", default=None, type=str,
                    help="a run's logdir whose D (but its GAN head) starts "
                         "this run")
+    p.add_argument("--steps_per_dispatch", default=0, type=int,
+                   help="Run K train steps per dispatch (on the card K "
+                        "replays of the step's CUDA graphs, enqueued with no "
+                        "host sync; on the CPU K eager steps). 0 = auto: the "
+                        "largest K <= 16 dividing every event cadence. 1 "
+                        "disables (the eager step).")
+    p.add_argument("--trace_steps", default=0, type=int,
+                   help="Capture a torch.profiler trace (CPU and CUDA "
+                        "activity) of N steps, written to <logdir>/profile "
+                        "(view with tensorboard); runs the eager step")
 
 
 def add_precision_args(p) -> None:
@@ -298,3 +312,89 @@ def evaluate(P, logger: Logger, history: History, trainer, loader, step: int,
 
 def cuda_sync(device: torch.device):
     return torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+
+def start_trace(logdir: str, device: torch.device):
+    """A running torch.profiler (CPU activity, and CUDA on the card) that
+    writes its trace under ``<logdir>/profile`` when stopped."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=activities, on_trace_ready=(
+        tensorboard_trace_handler(os.path.join(logdir, "profile"))))
+    prof.start()
+    return prof
+
+
+def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
+          meta: Dict[str, Any], first: int, step_args=None) -> History:
+    """The train loop of both train CLIs (the JAX CLIs' ``train_gan.py:
+    336-447`` and ``train_stylegan2.py:365-478``): steps ``first`` to
+    ``options.max_steps`` in the blocks of :class:`~contrad_tpu_torch.
+    training.dispatch.BlockDispatcher`, run by :class:`~contrad_tpu_torch.
+    training.graph.BlockRunner` (CUDA graphs on the card where K > 1); print,
+    evaluate and save at their exact steps, reading the block's last step;
+    ``--trace_steps`` as a torch.profiler trace. ``step_args(steps)`` gives
+    the runner's per-step ``ema_decay`` and ``do_r1`` for an array of step
+    numbers. Returns the :class:`History`."""
+    from contrad_tpu_torch.training.dispatch import (
+        BlockDispatcher, resolve_steps_per_dispatch)
+    from contrad_tpu_torch.training.graph import BlockRunner
+
+    k_dispatch = resolve_steps_per_dispatch(
+        P.steps_per_dispatch, getattr(loader, "supports_indexed", False),
+        P.trace_steps, P.print_every, P.evaluate_every, P.save_every)
+    dispatcher = BlockDispatcher(loader, k_dispatch, opt.max_steps)
+    if k_dispatch > 1:
+        logger.log(f"Multi-step dispatch: {k_dispatch} steps/program")
+    runner = BlockRunner(trainer, loader)
+    history = History(logger.logdir)
+    history.dispatch = dict(k=k_dispatch, stats=runner.stats)
+    trace = (start_trace(logger.logdir, trainer.device) if P.trace_steps > 0
+             else None)
+    sync = cuda_sync(trainer.device)
+    t0, steps, step = time.perf_counter(), 0, first
+    while step <= opt.max_steps:
+        blk = dispatcher.next_block(step)
+        if blk.kind == "block":
+            idx, labels = blk.idx_block, blk.labels_block
+        else:
+            idx, labels = [blk.idx], [blk.labels]
+        args = step_args(np.arange(step, step + blk.k)) if step_args else {}
+        metrics = runner.run(idx, labels if trainer.conditional else None,
+                             **args)
+        t0 += runner.take_setup_seconds()
+        step += blk.k - 1  # `step` is now the block's LAST step
+        steps += blk.k
+        if trace is not None and step == first + P.trace_steps:
+            sync()
+            trace.stop()
+            trace = None
+            logger.log(f"Profiler trace written to {logger.logdir}/profile")
+        if step % P.print_every == 0:
+            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+            sync()
+            dt = time.perf_counter() - t0
+            logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
+                       % (step, m["G_loss"], m["D_loss"], steps
+                          * opt.batch_size * opt.n_critic / max(dt, 1e-9)))
+            print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
+            for name, value in m.items():
+                logger.scalar_summary("gan/train/" + name, value, step)
+            history.append(dict(m, step=step, seconds_per_step=dt / steps))
+            t0, steps = time.perf_counter(), 0
+        if step % P.evaluate_every == 0:
+            t0 += evaluate(P, logger, history, trainer, loader, step, meta,
+                           evaluation, blk.materialize())
+        step += 1
+    if trace is not None:  # the run ended inside the traced steps
+        sync()
+        trace.stop()
+        logger.log(f"Profiler trace written to {logger.logdir}/profile")
+    if trainer.device.type == "cuda":
+        logger.log(f"peak device memory: "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    logger.log("Training finished.")
+    logger.close()
+    return history

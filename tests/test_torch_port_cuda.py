@@ -222,3 +222,163 @@ def test_kernel_replays_under_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, blur.blur2d(x, *taps, (2, 2)))
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _tiny_trainer(cli, argv, dataset="synthetic_16_64"):
+    """A trainer and loader of the port's CLI ``cli`` on the card, at a
+    tiny width: 16x16 synthetic data, batch 4."""
+    P = cli.parse_args(argv + ["--override", f"options.dataset={dataset}",
+                               "options.batch_size=4"])
+    _, loader, trainer = cli.build(P)
+    return loader, trainer
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().clone()}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return {prefix: torch.tensor(tree)}
+    return {}
+
+
+def _block_run(trainer, loader, snapshot, graphs, idx, ema, r1, labels=None,
+               k=4):
+    """From ``snapshot``, the steps of ``idx`` in blocks of ``k`` through a
+    ``BlockRunner`` (CUDA graphs or eager steps); every tensor of the
+    trainer's state, the device counts, the last metrics and the runner."""
+    from contrad_tpu_torch.training.graph import BlockRunner
+
+    trainer.load_state_dict(snapshot)
+    runner = BlockRunner(trainer, loader, graphs=graphs)
+    for b in range(0, len(idx), k):
+        metrics = runner.run(idx[b:b + k], None if labels is None
+                             else labels[b:b + k], ema[b:b + k], r1[b:b + k])
+    torch.cuda.synchronize()
+    state = _flat(trainer.state_dict())
+    state.update({f"metric/{k}": v.clone() for k, v in metrics.items()})
+    state["g_count_t"] = trainer.g_tx.count_t.clone()
+    state["d_count_t"] = trainer.d_tx.count_t.clone()
+    return state, runner
+
+
+def _graph_matches_eager(trainer, loader, idx, ema, r1, labels=None):
+    """The graph run against the eager run, with a second eager run as the
+    yardstick of the kernels' own nondeterminism: bitwise where the eager
+    runs agree bitwise, else within twice their distance and 1e-4 + 1e-4 *
+    max. Returns the graph runner and the launches each run made."""
+    from contrad_tpu_torch.training.graph import _clone
+
+    snapshot = _clone(trainer.state_dict())
+    launches = []
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphs in (False, True, False):
+            before = blur.blur2d.launches
+            runs.append(_block_run(trainer, loader, snapshot, graphs, idx,
+                                   ema, r1, labels))
+            launches.append(blur.blur2d.launches - before)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print("eager runs differ in", sum(not torch.equal(a, runs[2][0][n])
+                                      for n, a in runs[0][0].items()),
+          "of", len(runs[0][0]), "tensors")
+    (eager, _), (graph, runner), (again, _) = runs
+    assert eager.keys() == graph.keys()
+    for name, a in eager.items():
+        b, g = again[name], graph[name]
+        assert g.dtype == a.dtype and g.shape == a.shape, name
+        if torch.equal(a, b):
+            assert torch.equal(g, a), name
+        else:
+            spread = (b.double() - a.double()).abs().max()
+            err = (g.double() - a.double()).abs().max()
+            assert err <= 2 * spread, (name, float(err), float(spread))
+            assert err <= 1e-4 + 1e-4 * a.double().abs().max(), name
+    assert torch.equal(graph["/rng/device"], eager["/rng/device"])
+    return runner, launches
+
+
+def test_stylegan2_block_replays_bitwise_as_eager_steps(cuda):
+    """Two blocks of four steps of a tiny StyleGAN2 + ContraD trainer (R1
+    every second step, the EMA gate opening inside the first block) as CUDA
+    graph replays against the same steps eagerly; the blur's launches
+    counted at each replay."""
+    import numpy as np
+
+    from contrad_tpu_torch import train_stylegan2
+    from contrad_tpu_torch.training.graph import WARMUP_STEPS
+
+    loader, trainer = _tiny_trainer(train_stylegan2, [
+        "configs/gan/stylegan2/c10_style64.toml", "stylegan2_tiny", "--mode",
+        "contrad", "--aug", "simclr", "--lbd_r1", "0.1", "--d_reg_every", "2",
+        "--use_warmup"])
+    idx = [loader.next_indices()[0] for _ in range(8)]
+    steps = np.arange(1, 9)
+    r1 = steps % 2 == 0
+    ema = np.where(steps > 2, 0.99, 0.0)
+    per_kind = {}
+    for kind, flag in (("plain", False), ("r1", True)):
+        before = blur.blur2d.launches
+        trainer.train_step(loader.materialize(idx[0]), do_r1=flag)
+        per_kind[kind] = blur.blur2d.launches - before
+    assert per_kind["plain"] > 0 and per_kind["r1"] > per_kind["plain"]
+    runner, launches = _graph_matches_eager(trainer, loader, idx, ema, r1)
+    stats = runner.stats
+    assert stats["replays"] == {"plain": 4, "r1": 4}
+    assert stats["captured_launches"] == per_kind
+    assert stats["replay_launches"] == 4 * (per_kind["plain"]
+                                            + per_kind["r1"])
+    warm = sum(WARMUP_STEPS * per_kind[k] for k in stats["capture_seconds"])
+    assert launches[1] == stats["replay_launches"] + warm
+    assert launches[0] == launches[2] == stats["replay_launches"]
+    assert trainer.g_tx.count == trainer.d_tx.count == 2 + 8  # 2 above
+
+
+def test_conditional_flagship_block_replays_as_eager_steps(cuda):
+    """The conditional SNDCGAN flagship's step, its labels in the graph's
+    static row, as graph replays against eager steps; no blur launch."""
+    import numpy as np
+
+    from contrad_tpu_torch import train_gan
+
+    loader, trainer = _tiny_trainer(train_gan, [
+        "configs/gan/cifar10/c10_b64.toml", "sndcgan", "--mode", "contrad",
+        "--aug", "simclr", "--use_warmup", "--conditional"],
+        dataset="synthetic_16_256")
+    pairs = [loader.next_indices() for _ in range(8)]
+    idx, labels = [p[0] for p in pairs], [p[1] for p in pairs]
+    runner, launches = _graph_matches_eager(
+        trainer, loader, idx, np.zeros(8), np.zeros(8, bool), labels)
+    assert runner.stats["replays"] == {"plain": 8}
+    assert launches == [0, 0, 0]
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A step that reads a device value on the host cannot be captured: the
+    runner raises and runs nothing eagerly in its place."""
+    from contrad_tpu_torch import train_stylegan2
+    from contrad_tpu_torch.training.graph import BlockRunner
+
+    loader, trainer = _tiny_trainer(train_stylegan2, [
+        "configs/gan/stylegan2/c10_style64.toml", "stylegan2_tiny",
+        "--lbd_r1", "0.1"])
+    step = trainer.train_step
+
+    def reads_the_loss(*args, **kwargs):
+        metrics = step(*args, **kwargs)
+        float(metrics["D_loss"])
+        return metrics
+
+    trainer.train_step = reads_the_loss
+    idx = [loader.next_indices()[0] for _ in range(2)]
+    with pytest.raises(RuntimeError):
+        BlockRunner(trainer, loader).run(idx)

@@ -25,10 +25,11 @@ Tolerances:
     ulps after 10 updates (measured, not a test): the port follows optax's
     code, bit for bit, not XLA's fusion.
 
-Also: the storage dtypes and that the parameters stay float32 (the dtype
-audit of the optimiser); ``state_dict`` in the layout of the checkpoints
-written while ``ScheduledAdam`` wrapped ``torch.optim.Adam``, such a
-checkpoint loading, and optax's state carried
+Also: the bias corrections over the first 200,000 updates against
+optax's (``BC_ULPS``); the storage dtypes and that the parameters stay
+float32 (the dtype audit of the optimiser); ``state_dict`` in the layout of
+the checkpoints written while ``ScheduledAdam`` wrapped
+``torch.optim.Adam``, such a checkpoint loading, and optax's state carried
 into a ``ScheduledAdam`` bit for bit through ``bridge.adam_state_from_optax``.
 """
 
@@ -125,6 +126,45 @@ def test_levers_match_the_jitted_update(lever):
     for p, want in zip(tp, params):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(want),
                                    rtol=0, atol=1e-5 if grads_lever else 1e-6)
+
+
+# float32 ulps allowed between ``ScheduledAdam.schedule``'s bias
+# corrections (torch's pow with a float exponent) and optax's (XLA's pow of
+# the int32 count), and between a moment divided by each, over the first
+# BC_UPDATES updates on the CPU: bitwise at 0.5 and 0; at 0.999 and 0.99 the
+# two pows part on a few counts (measured: 23 counts, at most 4 ulps, at
+# 0.999; 3 counts, 2 ulps, 3 after the division, at 0.99)
+BC_UPDATES = 200000
+BC_ULPS = {0.5: (0, 0), 0.0: (0, 0), 0.999: (4, 4), 0.99: (2, 3)}
+
+
+def _ulps(a, b) -> int:
+    a, b = (np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+            for x in (a, b))
+    return int(np.abs(a - b).max())
+
+
+@pytest.mark.parametrize("beta", BETAS)
+def test_bias_corrections_match_optax(beta):
+    """``schedule``'s bias corrections ``1 - b ** t`` for t = 1 ..
+    BC_UPDATES (the device count set to every count at once, through the
+    same code) against optax's ``1 - decay ** count`` under jit, and a
+    moment divided by each against ``optax.tree_utils.tree_bias_correction``
+    (what ``scale_by_adam`` divides by), within ``BC_ULPS``."""
+    opt = ScheduledAdam([torch.nn.Parameter(torch.zeros(1))], LR, beta)
+    opt.count_t = torch.arange(BC_UPDATES, dtype=torch.int32)
+    _, bc1, bc2 = opt.schedule(torch.float32, torch.float32)
+    count = jnp.arange(1, BC_UPDATES + 1, dtype=jnp.int32)
+    moment = np.random.default_rng(0).standard_normal(BC_UPDATES).astype(
+        np.float32)
+    for b, bc in zip(beta, (bc1, bc2)):
+        want = jax.jit(lambda c: 1 - b ** c)(count)
+        divided = jax.jit(jax.vmap(
+            lambda m, c: optax.tree_utils.tree_bias_correction(m, b, c)))(
+                moment, count)
+        assert _ulps(bc.numpy(), want) <= BC_ULPS[b][0], b
+        assert _ulps(torch.from_numpy(moment) / bc, divided) \
+            <= BC_ULPS[b][1], b
 
 
 def test_state_dict_keeps_the_layout_and_the_storage_dtypes():

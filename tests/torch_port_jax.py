@@ -114,11 +114,13 @@ def jax_flip_params(key, n):
 
 def jax_jitter_params(key, n, b=(0.6, 1.4), c=(0.6, 1.4), s=(0.6, 1.4),
                       h=(-0.1, 0.1)):
-    """augment/color.py:127-165 (color_jitter with the default ranges)."""
+    """augment/color.py:127-165 (color_jitter with the default ranges);
+    the order as the bool tensor the port's jitter draws on the device."""
     r_order, r_c, r_hsv = jax.random.split(key, 3)
     r_h, r_s, r_v = jax.random.split(r_hsv, 3)
     return {
-        "contrast_first": bool(jax.random.bernoulli(r_order, 0.5)),
+        "contrast_first": torch.tensor(bool(
+            jax.random.bernoulli(r_order, 0.5))),
         "contrast": t(jax.random.uniform(r_c, (n, 1, 1, 1), minval=c[0],
                                          maxval=c[1])[:, 0, 0, 0]),
         "f_h": t(jax.random.uniform(r_h, (n, 1, 1), minval=h[0],
