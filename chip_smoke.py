@@ -131,7 +131,26 @@ result line:
    jitter's two orders against one and Adam's device-side schedule, timed,
    and its bias corrections on the card against the CPU's, the earlier
    host formula's and the correctly rounded ones; ``--trace_steps 2`` on
-   the 32x32 recipe writing one trace file.
+   the 32x32 recipe writing one trace file;
+12. data parallelism over processes (``--multihost``,
+   ``contrad_tpu_torch/parallel``): (a) each README recipe at full width
+   (the flagship at batch 512, the 32x32 StyleGAN2 recipe at 64, the
+   512x512 recipe at 16) through its CLI as 8 steps in graph blocks of 4,
+   without a world in this process and as an NCCL world of one (a process
+   of its own, ``hostenv.spawn_world``), cuDNN deterministic in both: every
+   tensor of the step-8 checkpoints and every logged metric bitwise equal,
+   the collectives captured in the graphs (calls and bytes a step), the
+   graph step's ms in the world against without, the blur launching alike;
+   (b) the same three recipes as a gloo world of two on the one card
+   (``parallel/_mh_worker.py``: 256, 32 and 8 rows a rank, 4 eager steps,
+   2 at 512x512 with R1 in the second) against the recipe in this process
+   without a world, TF32 off: step 1's losses and gradients (taking world
+   1's leaky-ReLU branch at every pre-activation within 2e-4 of 0, as phase
+   7 takes the CPU's) and the parameters after the last step within 1e-4 +
+   1e-4 * max, every tensor bitwise
+   equal across the ranks, the blur launching on each rank as a world-1
+   step does (phase 3's counts); per-rank ms/step and the collectives'
+   share; which collectives gloo takes on CUDA tensors.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -2304,6 +2323,377 @@ def graph_phase(per_step) -> dict:
     return out
 
 
+# ------------------------------------------------------- the world path
+
+WORLD_STEPS = 8  # phase 12a: two blocks of GRAPH_K steps
+WORLD_DATA = {"synthetic_32": "synthetic_32_512",  # fewer rows to draw in a
+              DATA_512: "synthetic_512_64"}  # fresh process, same shapes
+# a world process of phase 12a: the CLI (argv[1]) with cuDNN deterministic,
+# its history, dispatch stats, blur launches and collectives dumped to argv[2]
+WORLD_CLI = (
+    "import importlib, json, sys, torch\n"
+    "torch.backends.cudnn.deterministic = True\n"
+    "from contrad_tpu_torch.ops import blur\n"
+    "from contrad_tpu_torch.parallel import collectives\n"
+    "cli = importlib.import_module('contrad_tpu_torch.' + sys.argv[1])\n"
+    "h = cli.main(sys.argv[3:])\n"
+    "json.dump(dict(logdir=h.logdir, history=list(h), dispatch=h.dispatch,\n"
+    "               launches=blur.blur2d.launches,\n"
+    "               scalar_launches=blur.blur2d.scalar_launches,\n"
+    "               collectives=collectives.counts),\n"
+    "          open(sys.argv[2], 'w'), default=str)\n")
+# phase 12b: the worker's recipes at full width, as a gloo world of 2 on the
+# one card (256, 32 and 8 rows a rank), 4 steps (2 at 512x512, whose float32
+# steps with TF32 off take seconds); the 512x512 run's step 2 has R1
+WORLD_RECIPES = (
+    ("sndcgan", ["--arch", "sndcgan", "--size", "32", "--batch", "512",
+                 "--aug", "simclr", "--data_rows", "1024"]),
+    ("stylegan2_32", ["--trainer", "sg2", "--arch", "stylegan2", "--size",
+                      "32", "--batch", str(BATCH), "--aug", "simclr",
+                      "--lbd_r1", "0.1", "--d_reg_every", "1",
+                      "--data_rows", "256"]),
+    ("stylegan2_512", ["--trainer", "sg2", "--arch", "stylegan2_512",
+                       "--size", "512", "--batch", str(BATCH_512), "--aug",
+                       "simclr_hq", "--lbd_r1", "0.5", "--d_reg_every", "2",
+                       "--data_rows", "64", "--steps", "2"]))
+WORLD_B_STEPS = 4  # unless the recipe says otherwise
+
+
+def spawn(cmd, world: int, backend: str = "", timeout: float = 300):
+    """``cmd`` as the ``world`` processes of a world on this machine."""
+    from contrad_tpu_torch.hostenv import (
+        free_port, rank_env, spawn_world, worker_env)
+
+    port = free_port()
+    env = worker_env(str(ROOT))
+    return spawn_world([(cmd(r), rank_env(env, port, r, world, backend))
+                        for r in range(world)], cwd=str(ROOT),
+                       timeout=timeout)
+
+
+def world_of_one(name, cli, main, recipe, data, batch):
+    """Phase 12a for one recipe: the CLI as graph blocks of GRAPH_K steps
+    without a world (in this process) and as an NCCL world of one
+    (``--multihost``, a process of its own through ``spawn_world``), cuDNN
+    deterministic in both; every tensor of the step-8 checkpoints and every
+    logged metric must be bitwise equal. Returns the numbers."""
+    import torch
+
+    from contrad_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    flags = ["--steps_per_dispatch", str(GRAPH_K), "--evaluate_every",
+             str(WORLD_STEPS), "--no_fid", "--no_gif"]
+    solo = run_cli(main, recipe + flags, data, WORLD_STEPS, batch, GRAPH_K)
+    argv, _ = cli_argv(recipe + flags, data, WORLD_STEPS, batch, GRAPH_K)
+    dump = os.path.join(LOG_ROOT, f"world1_{name}.json")
+    spawn(lambda r: [sys.executable, "-c", WORLD_CLI, cli, dump] + argv
+          + ["--multihost"], 1)
+    world = json.loads(Path(dump).read_text())
+    want = flat_tensors(restore_checkpoint(solo["logdir"]))
+    got = flat_tensors(restore_checkpoint(world["logdir"]))
+    if want.keys() != got.keys():
+        raise AssertionError(f"{name}: the world's checkpoint holds other "
+                             f"tensors")
+    differ = [k for k, v in want.items() if not torch.equal(v, got[k])]
+    metrics = [{k: v for k, v in r.items() if k != "seconds_per_step"}
+               for r in solo["history"]]
+    world_metrics = [{k: v for k, v in r.items() if k != "seconds_per_step"}
+                     for r in world["history"]]
+    if differ or metrics != world_metrics:
+        raise AssertionError(f"{name}: the NCCL world of one differs from the "
+                             f"world-less run in {len(differ)} of {len(want)} "
+                             f"tensors ({differ[:4]}) or its metrics")
+    stats = world["dispatch"]["stats"]
+    if (world["dispatch"]["k"] != GRAPH_K or solo["dispatch"]["k"] != GRAPH_K
+            or world["launches"] != solo["launches"]
+            or world["scalar_launches"]):
+        raise AssertionError(f"{name}: K {world['dispatch']['k']}, blur "
+                             f"launches {world['launches']} against "
+                             f"{solo['launches']}")
+    coll = stats["captured_collectives"]
+    if not coll or any(c["calls"] == 0 for c in coll.values()):
+        raise AssertionError(f"{name}: no collective was captured: {coll}")
+    ms_solo = 1e3 * solo["history"][-1]["seconds_per_step"]
+    ms_world = 1e3 * world["history"][-1]["seconds_per_step"]
+    log(f"  {name}: {len(want)} checkpoint tensors and the metrics bitwise "
+        f"equal; collectives captured a step "
+        + ", ".join(f"{k}: {c['calls']} calls, {c['bytes'] / 2**20:.2f} MiB"
+                    for k, c in coll.items())
+        + f"; graph step {ms_world:.2f} ms in the world against "
+          f"{ms_solo:.2f} ms without ({ms_world / ms_solo:.3f}); blur "
+          f"launches {world['launches']} in both")
+    return dict(tensors=len(want), collectives_per_step=coll,
+                ms_world=ms_world, ms_solo=ms_solo,
+                launches=world["launches"],
+                capture_seconds=stats["capture_seconds"])
+
+
+def _within(got, want, what: str) -> float:
+    """max |got - want| within 1e-4 + 1e-4 * max |want| (phase 7's rule);
+    returns it over the scale."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    if err > MODEL_TOL[0] + MODEL_TOL[1] * scale:
+        raise AssertionError(f"{what}: {err:.3g} from world 1 (scale "
+                             f"{scale:.3g})")
+    return err / max(scale, 1e-30)
+
+
+BRANCH_TOL = 2e-4  # 12b: the pre-activations whose branch world 1 hands on
+
+
+class BranchCarry(LeakyBranches):
+    """Phase 7's rule for leaky-ReLU kinks, across processes (phase 12b).
+    Under ``record()`` (world 1, step 1) each ``F.leaky_relu`` call keeps
+    its pre-activations within BRANCH_TOL of 0: their global flat indices,
+    values and branches (``x > 0``). Under ``impose()`` (a rank of the
+    world, step 1) each call takes world 1's branch at this rank's rows of
+    those elements (each part of a call's global rows sliced as
+    ``local_rows`` slices a draw) and keeps its own elsewhere; ``flipped``
+    counts every element whose own branch differs, with its pre-activation
+    in both runs."""
+
+    def __init__(self, calls=None, batch: int = 0):
+        super().__init__()
+        self.calls = [] if calls is None else calls
+        self.batch = batch  # the global batch the rows are parts of
+        self.flipped = {"elements": 0, "rank_max": 0.0, "world1_max": 0.0}
+        self._local = None
+
+    def _record(self, plain, x, slope):
+        flat = x.detach().flatten()
+        idx = (flat.abs() <= BRANCH_TOL).nonzero().squeeze(1)
+        self.calls.append(dict(rows=x.shape[0], inner=flat.numel()
+                               // x.shape[0], idx=idx.cpu(),
+                               x=flat[idx].float().cpu(),
+                               branch=(flat[idx] > 0).cpu()))
+        return plain(x, slope)
+
+    def _localise(self, device):
+        """Each call's carried elements that are this rank's: local flat
+        index, world 1's branch and value."""
+        from contrad_tpu_torch.parallel import data_shard
+
+        rank, world = data_shard()
+        per = self.batch // world
+        self._local = []
+        for c in self.calls:
+            if c["rows"] % self.batch:
+                raise AssertionError(f"a leaky ReLU of {c['rows']} rows is no "
+                                     f"whole number of batches of "
+                                     f"{self.batch}")
+            row, rest = c["idx"] // c["inner"], c["idx"] % c["inner"]
+            part, j = row // self.batch, row % self.batch
+            mine = j // per == rank
+            local = ((part * per + j % per) * c["inner"] + rest)[mine]
+            self._local.append(dict(rows=c["rows"] // world,
+                                    inner=c["inner"], idx=local.to(device),
+                                    branch=c["branch"][mine].to(device),
+                                    x=c["x"][mine].to(device)))
+
+    def _impose(self, plain, x, slope):
+        import torch
+
+        if self._local is None:
+            self._localise(x.device)
+        if self._next >= len(self._local):
+            raise AssertionError("more leaky ReLUs than world 1 recorded")
+        c = self._local[self._next]
+        self._next += 1
+        if x.shape[0] != c["rows"] or x.numel() != c["rows"] * c["inner"]:
+            raise AssertionError(f"leaky ReLU {self._next - 1}: shape "
+                                 f"{tuple(x.shape)}, {c['rows']} rows of "
+                                 f"{c['inner']} carried")
+        mask = (x.detach() > 0).flatten()
+        own = mask[c["idx"]]
+        flips = own != c["branch"]
+        if bool(flips.any()):
+            xs = x.detach().flatten()[c["idx"][flips]].float().abs()
+            self.flipped["elements"] += int(flips.sum())
+            self.flipped["rank_max"] = max(self.flipped["rank_max"],
+                                           float(xs.max()))
+            self.flipped["world1_max"] = max(
+                self.flipped["world1_max"],
+                float(c["x"][flips].abs().max()))
+        mask[c["idx"]] = c["branch"]
+        return torch.where(mask.view(x.shape), x, x * slope)
+
+    def summary(self) -> dict:
+        return dict(self.flipped, calls=len(self.calls), imposed=self._next,
+                    carried=sum(int(c["idx"].numel()) for c in self.calls))
+
+
+def world_rank(argv) -> None:
+    """A rank of phase 12b (``python -c "import chip_smoke; ..."``): the
+    worker (``argv[1:]``) with world 1's branches (the file ``argv[0]``)
+    imposed in step 1; the carried branches' summary beside its output."""
+    import torch
+
+    from contrad_tpu_torch.parallel import _mh_worker
+
+    args = _mh_worker.parse_args(argv[1:])
+    carry = BranchCarry(torch.load(argv[0], weights_only=False), args.batch)
+    _mh_worker.main(argv[1:], step_context=lambda step: (
+        carry.impose() if step == 1 else contextlib.nullcontext()))
+    torch.save(carry.summary(), f"{args.out}.rank{args.rank}.branches.pt")
+
+
+def world_launches(name: str, steps: int, per_step) -> list:
+    """The blur's launches in each step of a phase-12b run, phase 3's
+    counts: none on SNDCGAN, R1 in every 32x32 step, and in the 512x512
+    run's step 2."""
+    if name == "sndcgan":
+        return [0] * steps
+    if name == "stylegan2_32":
+        return [per_step["stylegan2_32"]] * steps
+    return [per_step["stylegan2_512_r1"] if s % 2 == 0
+            else per_step["stylegan2_512"] for s in range(1, steps + 1)]
+
+
+def world_of_two(name, flags, per_step):
+    """Phase 12b for one recipe: the worker's recipe as a gloo world of two
+    on the one card, eager, against the same recipe in this process without
+    a world (cuDNN deterministic and TF32 off in both): step 1's losses and
+    gradients and the parameters after its last step within 1e-4 +
+    1e-4 * max, step 1 taking world 1's leaky-ReLU branch at every
+    pre-activation within BRANCH_TOL of 0 (``BranchCarry``; a differing
+    branch must lie within it of 0 in both runs), every tensor bitwise
+    equal across the ranks, the blur launching on each rank as a world-1
+    step does. Returns the numbers."""
+    import torch
+
+    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.parallel import _mh_worker
+
+    argv = ["--steps", str(WORLD_B_STEPS)] + flags + ["--device", "cuda"]
+    out = os.path.join(LOG_ROOT, f"world2_{name}")
+    args = _mh_worker.parse_args(argv + ["--out", out])
+    steps = args.steps
+    blur.blur2d.launches = blur.blur2d.scalar_launches = 0
+    carry = BranchCarry()
+    ref = _mh_worker.run_recipe(args, torch.device("cuda"), lambda step: (
+        carry.record() if step == 1 else contextlib.nullcontext()))
+    branches = f"{out}.branches.pt"
+    torch.save(carry.calls, branches)
+    del carry
+    torch.cuda.empty_cache()
+    spawn(lambda r: [sys.executable, "-c",
+                     "import sys, chip_smoke; chip_smoke.world_rank("
+                     "sys.argv[1:])", branches, "--rank", str(r), "--world",
+                     "2", "--time_collectives",
+                     "--deterministic", "--out", out] + argv, 2, "gloo")
+    ranks = [torch.load(f"{out}.rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    carried = [torch.load(f"{out}.rank{r}.branches.pt", weights_only=False)
+               for r in range(2)]
+    for c in carried:
+        if c["imposed"] != c["calls"] or c["rank_max"] > BRANCH_TOL:
+            raise AssertionError(f"{name}: branches carried {c}")
+    a, b = ranks
+    if a["metrics"] != b["metrics"] or a["state"].keys() != b["state"].keys():
+        raise AssertionError(f"{name}: the ranks' metrics or state differ")
+    differ = [k for k, v in a["state"].items()
+              if not torch.equal(v, b["state"][k])]
+    differ += [f"grads {i}" for i, (x, y) in enumerate(zip(
+        a["g_grads"][0] + a["d_grads"][0], b["g_grads"][0] + b["d_grads"][0]))
+        if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"{name}: replicas differ in {differ[:4]}")
+    want_steps = world_launches(name, steps, per_step)
+    launches = {}
+    for who, r in (("world 1", ref), ("rank 0", a), ("rank 1", b)):
+        launches[who] = [row["blur_launches"] for row in r["steps"]]
+        if launches[who] != want_steps:
+            raise AssertionError(f"{name} {who}: blur launches "
+                                 f"{launches[who]}, not {want_steps}")
+    del launches["world 1"]
+    worst = {}
+    for k, v in ref["metrics"][0].items():
+        worst[f"step 1 {k}"] = _within(torch.tensor(a["metrics"][0][k]),
+                                       torch.tensor(v), f"{name} step 1 {k}")
+    for which in ("g_grads", "d_grads"):
+        for i, (x, y) in enumerate(zip(a[which][0], ref[which][0],
+                                       strict=True)):
+            worst[f"{which} {i}"] = _within(x, y, f"{name} {which} {i}")
+    params = [k for k in ref["state"] if k.split("/")[0] in
+              ("generator", "discriminator", "g_ema")]
+    for k in params:
+        worst[k] = _within(a["state"][k], ref["state"][k], f"{name} {k}")
+    top = max(worst, key=worst.get)
+    ms = [sum(row["ms"] for row in r["steps"][1:]) / (steps - 1)
+          for r in (ref, a, b)]
+    coll = [sum(row["collective_seconds"] for row in r["steps"][1:])
+            / (steps - 1) * 1e3 for r in (a, b)]
+    calls = a["steps"][0]["collective_calls"]
+    mib = a["steps"][0]["collective_bytes"] / 2**20
+    log(f"  {name}: replicas bitwise ({len(a['state'])} tensors, the "
+        f"gradients, the metrics); against world 1: {len(worst)} checks, "
+        f"worst relative {worst[top]:.3g} ({top}); blur launches a step "
+        f"{launches}; ms/step (steps 2-{steps}) world "
+        f"1 {ms[0]:.1f}, rank 0 {ms[1]:.1f}, rank 1 {ms[2]:.1f}, of which "
+        f"collectives {coll[0]:.1f} and {coll[1]:.1f} ({calls} calls, "
+        f"{mib:.2f} MiB a step)")
+    flips = [c["elements"] for c in carried]
+    log(f"    leaky ReLU in step 1: {carried[0]['calls']} calls, "
+        f"{carried[0]['carried']} pre-activations within "
+        f"{BRANCH_TOL:g} of 0 carried from world 1, of which {flips} took "
+        f"the other branch on the ranks (at most "
+        f"{max(c['rank_max'] for c in carried):.3g} from 0 there, "
+        f"{max(c['world1_max'] for c in carried):.3g} in world 1)")
+    probe = a.get("gloo_cuda")
+    return dict(worst=worst[top], worst_name=top, checks=len(worst),
+                branch_flips=flips, branches=carried,
+                launches_per_step=launches, ms_world1=ms[0],
+                ms_ranks=ms[1:], collective_ms=coll, collective_calls=calls,
+                collective_mib=mib, gloo_cuda=probe)
+
+
+def world_phase(per_step) -> dict:
+    """Phase 12: data parallelism over processes (``--multihost``). 12a: an
+    NCCL world of one, its collectives captured in the CUDA graphs, bitwise
+    against the world-less CLI for each recipe at full width; 12b: a gloo
+    world of two on the one card against world 1 eager. Returns its
+    numbers."""
+    import gc
+
+    import torch
+
+    t12 = time.perf_counter()
+    phase(f"[12] the world path: (a) an NCCL world of one, {WORLD_STEPS} "
+          f"steps as graph blocks of {GRAPH_K}, against the world-less CLI")
+    from contrad_tpu_torch import (
+        train_gan, train_stylegan2, train_stylegan2_contraD)
+
+    out = {"a": {}, "b": {}}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    torch.backends.cudnn.deterministic = True
+    for name, cli, main, recipe, data, batch in (
+            ("sndcgan", "train_gan", train_gan.main, FLAGSHIP,
+             "synthetic_32", None),
+            ("stylegan2_32", "train_stylegan2", train_stylegan2.main, RECIPE,
+             "synthetic_32", BATCH),
+            ("stylegan2_512", "train_stylegan2_contraD",
+             train_stylegan2_contraD.main, RECIPE_512, DATA_512, BATCH_512)):
+        out["a"][name] = world_of_one(name, cli, main, recipe,
+                                      WORLD_DATA[data], batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("  (b) a gloo world of two on the one card, eager steps, against "
+          "world 1 (TF32 off)")
+    torch.backends.cudnn.allow_tf32 = False
+    for name, flags in WORLD_RECIPES:
+        out["b"][name] = world_of_two(name, flags, per_step)
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    probe = out["b"]["sndcgan"]["gloo_cuda"]
+    log(f"  gloo on CUDA tensors: {probe}")
+    out["seconds"] = time.perf_counter() - t12
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2443,6 +2833,7 @@ def main() -> int:
     phase9 = inception_phase(phase8["stylegan2"]["sample_dir"])
     phase10 = bf16_phase(per_step, step_sum)
     phase11 = graph_phase(per_step)
+    phase12 = world_phase(per_step)
     logs.cleanup()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
@@ -2469,7 +2860,12 @@ def main() -> int:
                for name, r in phase11["equality"].items()},
             **{f"{name} graph run {i + 1} (phase 11, with warm-up)":
                r["launches"] for name, turns in phase11["times"].items()
-               for i, r in enumerate(turns["graph"])}},
+               for i, r in enumerate(turns["graph"])},
+            **{f"{name} NCCL world of 1, {WORLD_STEPS} steps (phase 12a, "
+               f"with warm-up)": r["launches"]
+               for name, r in phase12["a"].items()},
+            **{f"{name} gloo world of 2, per rank a step (phase 12b)":
+               r["launches_per_step"] for name, r in phase12["b"].items()}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
                                   sndcgan_conditional=0)}]
     total_s = time.perf_counter() - T0
@@ -2490,7 +2886,7 @@ def main() -> int:
             stylegan2_512=dict(train=run512, profile=prof512,
                                card_vs_cpu=check512),
             evaluation=phase8, inception=phase9, bf16=phase10,
-            graphs=phase11),
+            graphs=phase11, worlds=phase12),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,6 +10,16 @@ epoch (``numpy.random.default_rng((seed, epoch))``) and drop-last. With
 labels copied to the device beside it. Its position (epoch and row) is a
 ``state_dict``, so a resumed run reads the batches an uninterrupted run
 would have read.
+
+In a world of processes (``shard=(rank, world)``, the counterpart of the
+JAX ``BatchIterator``'s) every rank keeps the whole set on its card, draws
+the same global permutation and takes its rows of each global batch. The
+JAX package slices the flat ``n_critic x B`` batch contiguously and XLA
+reshards it; here each rank computes its own rows of every critic
+sub-batch, so each of the ``parts`` sub-batches is sliced (``parts =
+n_critic``). The global batch is the same rows in the same order, and the
+position, kept in global rows, is the same on every rank: a checkpoint of a
+world resumes in a world of any size.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import numpy as np
 import torch
 
 from contrad_tpu_torch import resolve_device
+from contrad_tpu_torch.parallel.mesh import local_rows
 
 
 @dataclasses.dataclass
@@ -59,12 +70,23 @@ class DeviceBatchIterator:
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, seed: int = 0,
                  start_epoch: int = 0, device: str | torch.device = "cuda",
-                 with_labels: bool = False):
+                 with_labels: bool = False,
+                 shard: Optional[Tuple[int, int]] = None, parts: int = 1):
         if batch_size > len(dataset):
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset size {len(dataset)}")
+        self.shard = shard if shard is not None and shard[1] > 1 else None
+        if self.shard is not None:
+            rank, world = self.shard
+            if batch_size % (parts * world):
+                raise ValueError(
+                    f"global batch {batch_size // parts} must divide device "
+                    f"count {world}")
+            if not 0 <= rank < world:
+                raise ValueError(f"bad shard {shard}")
+        self.parts = parts
         self.device = resolve_device(device)
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # the GLOBAL rows of one step
         self.seed = seed
         self.epoch = start_epoch
         self.n = len(dataset)
@@ -88,7 +110,8 @@ class DeviceBatchIterator:
 
     def next_indices(self) -> Tuple[np.ndarray, np.ndarray]:
         """Advance the stream by one batch and return its dataset rows
-        (int32) and their labels, both on the host."""
+        (int32) and their labels, both on the host: in a world, this rank's
+        rows of each of the ``parts`` sub-batches."""
         if self._order is None or self._pos + self.batch_size > self.n:
             if self._order is not None:
                 self.epoch += 1
@@ -97,6 +120,8 @@ class DeviceBatchIterator:
             self._pos = 0
         idx = self._order[self._pos: self._pos + self.batch_size]
         self._pos += self.batch_size
+        if self.shard is not None:
+            idx = local_rows(idx, self.batch_size // self.parts, self.shard)
         return idx.astype(np.int32), self._labels[idx]
 
     def materialize(self, idx) -> torch.Tensor:
@@ -115,3 +140,18 @@ class DeviceBatchIterator:
         if not self.with_labels:
             return images
         return images, torch.from_numpy(labels).to(self.device)
+
+
+def make_train_loader(dataset: ArrayDataset, batch_size: int, n_critic: int,
+                      seed: int = 0, device: str | torch.device = "cuda",
+                      with_labels: bool = False) -> DeviceBatchIterator:
+    """The train CLIs' data stream (the counterpart of the JAX
+    ``make_train_loader``): ``n_critic`` sub-batches of the global
+    ``batch_size`` a step, gathered on the card from the device-resident
+    set; in a world of processes, this rank's rows of each (``parallel.
+    data_shard``)."""
+    from contrad_tpu_torch.parallel import data_shard
+
+    return DeviceBatchIterator(dataset, batch_size * n_critic, seed=seed,
+                               device=device, with_labels=with_labels,
+                               shard=data_shard(), parts=n_critic)

@@ -5,9 +5,11 @@ The reference's evaluation (``third_party/fid/fid_score.py:115-158``)
 brings every batch of 50 images to the host and feeds it back to a separate
 InceptionV3. Here the latents are drawn on the card, G and the embedder run
 there chunk after chunk, and only the ``(n, d)`` features come to the host.
-The JAX package shards that program over a device mesh; the port runs on
-one card, so there is no mesh, and the module keeps its name so that a
-reader finds the counterpart.
+The JAX package shards that program over a device mesh; the port shards it
+over a world of processes (``parallel/``): every rank draws each chunk's
+latents from the same seed, samples and embeds its rows, and the features
+are gathered in rank order, so every rank holds the features a world of one
+computes.
 """
 
 from __future__ import annotations
@@ -58,10 +60,20 @@ def make_feature_sampler(trainer, embedder: str = "inception",
     draws its latents (and a StyleGAN2 G's noise maps) from a
     ``torch.Generator`` on the card seeded ``seed * 100003 + i``, the JAX
     package's stream-splitting constant (``fid.py:78``). G is read at each
-    call, so the features follow the training."""
+    call, so the features follow the training. In a world of processes it
+    is collective: each rank samples its rows of every chunk
+    (``batch_per_call`` must divide by the world) and every rank returns
+    all ``n`` features."""
     from contrad_tpu_torch.models import generate
+    from contrad_tpu_torch.parallel import data_shard, gather_rows
 
     embed = get_torch_embed_forward(embedder, trainer.device, inception_path)
+    rank, world = data_shard()
+    if batch_per_call % world:
+        raise ValueError(f"the FID sampler's chunk of {batch_per_call} must "
+                         f"divide device count {world}")
+    per = batch_per_call // world
+    rows = slice(rank * per, (rank + 1) * per)
 
     def feature_fn(n: int, seed: int = 0) -> np.ndarray:
         G = trainer.g_ema if use_ema else trainer.generator
@@ -71,8 +83,8 @@ def make_feature_sampler(trainer, embedder: str = "inception",
                 rng = torch.Generator(device=trainer.device)
                 rng.manual_seed(seed * 100003 + i)
                 z = G.sample_latent(batch_per_call, rng)
-                images = generate(G, z, noise_rng=rng)
-                feats.append(embed(images.float()))
+                images = generate(G, z, noise_rng=rng, rows=rows)
+                feats.append(gather_rows(embed(images.float())))
         return torch.cat(feats).double().cpu().numpy()[:n]
 
     return feature_fn

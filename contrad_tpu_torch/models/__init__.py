@@ -85,18 +85,22 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
 
 def generate(generator: nn.Module, z: torch.Tensor,
              noise_rng: Optional[torch.Generator] = None,
-             noise: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+             noise: Optional[List[torch.Tensor]] = None,
+             rows: slice = slice(None)) -> torch.Tensor:
     """Eval-mode images of ``generator`` from latents ``z``: SNDCGAN with its
     running batch-norm statistics; StyleGAN2 clamped to [0, 1], without
     style mixing, with the noise maps ``noise`` or, where None, maps drawn
-    from ``noise_rng``."""
+    from ``noise_rng`` for all of ``z``. Only the ``rows`` of ``z`` (and of
+    the noise) are generated: a rank of a world draws a whole chunk and
+    samples its share of it."""
     from contrad_tpu_torch.models.stylegan2 import GStylegan2
 
     if isinstance(generator, GStylegan2):
         if noise is None:
             noise = generator.draw_noise(z.shape[0], noise_rng, z.device)
-        return generator(z, noise, None, train=False)
-    return generator(z, train=False)
+        return generator(z[rows], [n[rows] for n in noise], None,
+                         train=False)
+    return generator(z[rows], train=False)
 
 
 __all__ = ["ARCHITECTURES", "get_architecture", "generate", "Discriminator",

@@ -33,6 +33,7 @@ from torch import nn
 from contrad_tpu_torch import at_least_f32, cast
 from contrad_tpu_torch.models.base import Discriminator
 from contrad_tpu_torch.ops.spectral_norm import SNConv, dcgan_normal_
+from contrad_tpu_torch.parallel import data_shard, global_var_mean
 
 
 def _dcgan(layer: nn.Module) -> nn.Module:
@@ -49,7 +50,13 @@ class BatchNorm(nn.Module):
     unbiased variance there, larger by n / (n - 1). In eval mode it
     normalises with the running statistics. A bfloat16 input is normalised
     in float32 against the float32 statistics and parameters, and the
-    result rounded to bfloat16 (``F.batch_norm``'s mixed-dtype form)."""
+    result rounded to bfloat16 (``F.batch_norm``'s mixed-dtype form).
+
+    In a world of more than one process the train-mode statistics are the
+    global batch's (``parallel.global_var_mean``, which carries their
+    gradient across the ranks), as XLA reduces them over the JAX package's
+    mesh, so the running statistics move identically on every rank. A world
+    of one has nothing to reduce and takes the world-less path."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -63,6 +70,8 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if data_shard()[1] > 1:
+            return self._global(x)
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             var, mean = torch.var_mean(at_least_f32(x), dim=dims, correction=0)
@@ -71,6 +80,21 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the world's global batch."""
+        dims = [0] + list(range(2, x.dim()))
+        xf = at_least_f32(x)
+        var, mean = global_var_mean(xf, dims)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * scale.reshape(shape) \
+            + self.bias.reshape(shape)
+        return y.to(x.dtype)
 
 
 class GSndcgan(nn.Module):

@@ -21,13 +21,34 @@ from contrad_tpu_torch import at_least_f32, cast
 from contrad_tpu_torch.models.base import Discriminator
 from contrad_tpu_torch.models.stylegan2.generator import stylegan2_channels
 from contrad_tpu_torch.models.stylegan2.layers import ConvLayer, FromRGB
+from contrad_tpu_torch.parallel import data_shard
+
+
+def stddev_group_size(rows: int, world: int, stddev_group: int = 4) -> int:
+    """The minibatch-stddev group of a D pass over ``rows`` rows a rank in
+    a world of ``world`` processes: ``min(N, stddev_group)`` of the global
+    N = ``rows * world``, as the JAX package takes it over its global batch.
+    Its groups are contiguous, so they stay on one rank where ``rows`` is a
+    multiple of the group; otherwise a ValueError naming the batch and the
+    world."""
+    group = min(rows * world, stddev_group)
+    if rows % group:
+        raise ValueError(
+            f"minibatch stddev: a global batch of {rows * world} on {world} "
+            f"processes leaves {rows} rows a rank, not a multiple of the "
+            f"stddev group {group}")
+    return group
 
 
 def minibatch_stddev(x: torch.Tensor, stddev_group: int = 4) -> torch.Tensor:
     """Append a per-group feature-stddev channel, groups of contiguous
-    samples as in the JAX package (reference discriminator.py:22-33)."""
+    samples as in the JAX package (reference discriminator.py:22-33). In a
+    world the group size is that of the global batch and every group lies
+    on one rank (:func:`stddev_group_size`)."""
     n, h, w, c = x.shape
-    group = min(n, stddev_group)
+    world = data_shard()[1]
+    group = (min(n, stddev_group) if world == 1
+             else stddev_group_size(n, world, stddev_group))
     g = at_least_f32(x).reshape(n // group, group, h, w, c)
     std = torch.sqrt(torch.var(g, dim=1, unbiased=False) + 1e-8)
     std = std.mean(dim=(1, 2, 3)).to(x.dtype)  # (n // group,)

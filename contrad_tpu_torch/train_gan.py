@@ -29,7 +29,11 @@ configuration is all four at ``bf16``. ``--steps_per_dispatch K`` runs K
 steps a dispatch, as CUDA graph replays on the card (0, the default, picks
 the largest K <= 16 that divides every cadence; 1 is the eager step), and
 ``--trace_steps N`` writes a torch.profiler trace of N steps under
-``<logdir>/profile`` (``utils/run.py::train``).
+``<logdir>/profile`` (``utils/run.py::train``). ``--multihost`` joins a
+world of processes, one per card (torchrun, or the ``CONTRAD_*``
+rendezvous of ``hostenv.spawn_world``; NCCL, or gloo with ``--device
+cpu``): each rank trains on its rows of the global batch and the step
+computes the global batch's function (``contrad_tpu_torch/parallel``).
 """
 
 from __future__ import annotations
@@ -70,16 +74,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def build(P: argparse.Namespace):
     """Config, data stream and trainer for the parsed arguments."""
-    from contrad_tpu_torch import resolve_device
     from contrad_tpu_torch.augment import get_augment
     from contrad_tpu_torch.config import (
         default_config_files, finalize_options, load_config)
-    from contrad_tpu_torch.data import DeviceBatchIterator, get_dataset
+    from contrad_tpu_torch.data import get_dataset, make_train_loader
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import GANTrainer, ScheduledAdam
-    from contrad_tpu_torch.utils.run import optimizer_levers
+    from contrad_tpu_torch.utils.run import (
+        check_world, join_world, optimizer_levers)
 
-    device = resolve_device(P.device)
+    device = join_world(P)
     cfg = finalize_options(load_config(default_config_files(P.config),
                                        P.override))
     opt = cfg.options
@@ -109,9 +113,10 @@ def build(P: argparse.Namespace):
         real_augment=(get_augment("hflip") if train_set.train_aug == "hflip"
                       else None),
         seed=P.seed)
-    loader = DeviceBatchIterator(train_set, opt.batch_size * opt.n_critic,
-                                 seed=P.seed, device=device,
-                                 with_labels=P.conditional)
+    check_world(P, opt, discriminator)
+    loader = make_train_loader(train_set, opt.batch_size, opt.n_critic,
+                               seed=P.seed, device=device,
+                               with_labels=P.conditional)
     return cfg, loader, trainer
 
 
@@ -120,6 +125,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     :class:`~contrad_tpu_torch.utils.run.History`: one record per printed
     step (its metrics and the wall seconds per step since the last print,
     checkpoint writes excluded), the logdir and the checkpoints written."""
+    from contrad_tpu_torch.parallel import shutdown
     from contrad_tpu_torch.training.modes import run_filename
     from contrad_tpu_torch.utils import run
 
@@ -133,7 +139,10 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     first = run.restore(P, trainer, loader, logger, evaluation)
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
     run.log_start(logger, P, trainer, opt, first)
-    return run.train(P, opt, trainer, loader, logger, evaluation, meta, first)
+    history = run.train(P, opt, trainer, loader, logger, evaluation, meta,
+                        first)
+    shutdown()
+    return history
 
 
 if __name__ == "__main__":

@@ -21,7 +21,9 @@ runs on the card; ``--device cpu`` runs it on the CPU. ``--dtype``,
 layouts, so it takes no ``--no_packed_aug``. ``--steps_per_dispatch`` and
 ``--trace_steps`` are ``train_gan``'s; in a block of K steps the lazy R1 and
 the EMA gate are per-step vectors, and each step replays the CUDA graph of
-its kind (plain, or with R1).
+its kind (plain, or with R1). ``--multihost`` is ``train_gan``'s; the
+global batch's rows a rank must be a multiple of the minibatch stddev's
+group (4, or the global batch where smaller).
 """
 
 from __future__ import annotations
@@ -69,16 +71,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def build(P: argparse.Namespace):
     """Config, data stream and trainer for the parsed arguments."""
-    from contrad_tpu_torch import resolve_device
     from contrad_tpu_torch.augment import get_augment
     from contrad_tpu_torch.config import (
         default_config_files, finalize_options, load_config)
-    from contrad_tpu_torch.data import DeviceBatchIterator, get_dataset
+    from contrad_tpu_torch.data import get_dataset, make_train_loader
     from contrad_tpu_torch.models import get_architecture
     from contrad_tpu_torch.training import ScheduledAdam, StyleGAN2Trainer
-    from contrad_tpu_torch.utils.run import optimizer_levers
+    from contrad_tpu_torch.utils.run import (
+        check_world, join_world, optimizer_levers)
 
-    device = resolve_device(P.device)
+    device = join_world(P)
     cfg = finalize_options(load_config(default_config_files(P.config),
                                        P.override))
     opt = cfg.options
@@ -115,8 +117,9 @@ def build(P: argparse.Namespace):
         real_augment=(get_augment("hflip") if train_set.train_aug == "hflip"
                       else None),
         seed=P.seed)
-    loader = DeviceBatchIterator(train_set, opt.batch_size * opt.n_critic,
-                                 seed=P.seed, device=device)
+    check_world(P, opt, discriminator)
+    loader = make_train_loader(train_set, opt.batch_size, opt.n_critic,
+                               seed=P.seed, device=device)
     return cfg, loader, trainer
 
 
@@ -140,6 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     :class:`~contrad_tpu_torch.utils.run.History`: one record per printed
     step (its metrics and the wall seconds per step since the last print,
     checkpoint writes excluded), the logdir and the checkpoints written."""
+    from contrad_tpu_torch.parallel import shutdown
     from contrad_tpu_torch.training.modes import run_filename
     from contrad_tpu_torch.utils import run
 
@@ -161,8 +165,11 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     run.log_start(logger, P, trainer, opt, first)
     logger.log(f"Use G moving average: {accum}")
 
-    return run.train(P, opt, trainer, loader, logger, evaluation, meta, first,
-                     lambda steps: step_args(P, opt.batch_size, steps))
+    history = run.train(P, opt, trainer, loader, logger, evaluation, meta,
+                        first, lambda steps: step_args(P, opt.batch_size,
+                                                       steps))
+    shutdown()
+    return history
 
 
 if __name__ == "__main__":

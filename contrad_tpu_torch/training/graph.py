@@ -31,9 +31,15 @@ capture of its own.
     restored bitwise: warm-up trains nothing. Their blur launches are real
     and counted.
   * **Counts.** A capture launches nothing: the blur launches it recorded
-    are taken off ``blur2d.launches`` and added back at each replay, and the
+    are taken off ``blur2d.launches`` and added back at each replay, as are
+    the collectives of a world (``parallel.collectives.counts``), and the
     optimisers' host counts advance by each replay's updates (the device
     counts advance inside the graph).
+  * **Worlds.** Under NCCL a step's collectives (the gathers of the global
+    losses, the batch-norm statistics, the gradient all-reduce) are captured
+    inside its graph; the communicator exists before (``init_distributed``
+    runs one collective) and the warm-up steps run them eagerly. Gloo cannot
+    be captured: a gloo world runs the eager step (``utils/run.py``).
   * **No fallback.** A capture or a replay that fails raises; a block never
     quietly runs eager on the card.
 
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 from contrad_tpu_torch.ops import blur
+from contrad_tpu_torch.parallel import collectives
 from contrad_tpu_torch.training.step import Metrics, StyleGAN2Trainer
 
 WARMUP_STEPS = 2  # eager steps of a kind before its capture
@@ -72,9 +79,10 @@ class _Captured:
     blur launches it holds and each optimiser's updates in one replay."""
 
     def __init__(self, graph, outputs: Metrics, launches: int, scalar: int,
-                 updates: Sequence[int]):
+                 updates: Sequence[int], collectives: Dict[str, int]):
         self.graph, self.outputs = graph, outputs
         self.launches, self.scalar, self.updates = launches, scalar, updates
+        self.collectives = collectives
 
 
 class BlockRunner:
@@ -95,7 +103,7 @@ class BlockRunner:
         self._setup_seconds = 0.0
         self.stats: Dict[str, Any] = dict(
             capture_seconds={}, captured_launches={}, replays={},
-            replay_launches=0)
+            replay_launches=0, captured_collectives={})
 
     # ------------------------------------------------------------- blocks
 
@@ -183,6 +191,8 @@ class BlockRunner:
             entry.graph.replay()
             blur.blur2d.launches += entry.launches
             blur.blur2d.scalar_launches += entry.scalar
+            for key, n in entry.collectives.items():
+                collectives.counts[key] += n
             for opt, n in zip(self._optimizers(), entry.updates):
                 opt.count += n
             self.stats["replays"][kind] = self.stats["replays"].get(kind, 0) + 1
@@ -221,15 +231,20 @@ class BlockRunner:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(trainer.rng.device)
         launches, scalar = blur.blur2d.launches, blur.blur2d.scalar_launches
+        before = dict(collectives.counts)
         with torch.cuda.graph(graph, pool=self._pool):
             outputs = self._graph_step(kind)
         captured = (blur.blur2d.launches - launches,
                     blur.blur2d.scalar_launches - scalar)
         blur.blur2d.launches, blur.blur2d.scalar_launches = launches, scalar
+        held = {k: collectives.counts[k] - v for k, v in before.items()}
+        collectives.counts.update(before)
         if self._pool is None:
             self._pool = graph.pool()
-        self._captured[kind] = _Captured(graph, outputs, *captured, updates)
+        self._captured[kind] = _Captured(graph, outputs, *captured, updates,
+                                         held)
         seconds = time.perf_counter() - t0
         self._setup_seconds += seconds
         self.stats["capture_seconds"][kind] = seconds
         self.stats["captured_launches"][kind] = captured[0]
+        self.stats["captured_collectives"][kind] = held

@@ -24,6 +24,14 @@ and D_gen.
 
 Each mode's main D pass persists the spectral-norm state (``D(x)``); the
 penalties' passes do not.
+
+In a world of processes (``parallel/``) each rank runs D on its own rows
+and every loss is taken over the global batch: the D outputs and features
+are split into their parts (reals, each view, fakes) first and each part is
+gathered rank-major (``gather_rows``), so that a part's global rows stand in
+the order a world of one has them. A D pass's concatenation is never
+gathered whole: its order would be ``[r0: v1, v2, gen; r1: v1, v2, gen]``,
+not ``[v1; v2; gen]``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from contrad_tpu_torch import at_least_f32
 from contrad_tpu_torch.models.base import l2_normalize_rows
+from contrad_tpu_torch.parallel import gather_rows
 from contrad_tpu_torch.training import penalty as penalties
 from contrad_tpu_torch.training.losses import (
     gan_d_loss, gan_g_loss, nt_xent, supcon_fake)
@@ -81,12 +90,13 @@ def _gan_loss_D(ctx, D, images, gen_images, d_input, all_images, draws,
     n = images.shape[0]
     d_all, _ = D(d_input, y=_cat_y(y_real, y_gen, "real", "gen"))
     d_real, d_gen = d_all[:n], d_all[n:]
-    d_loss = gan_d_loss(d_real, d_gen, ctx.loss_type)
+    all_real, all_gen = gather_rows(d_real), gather_rows(d_gen)
+    d_loss = gan_d_loss(all_real, all_gen, ctx.loss_type)
     penalty = penalties.compute_penalty(
         ctx, D, images=images, gen_images=gen_images, all_images=all_images,
         d_real=d_real, d_gen=d_gen, params=draws.penalty, y_real=y_real,
         y_gen=y_gen)
-    return d_loss + penalty, _metrics(d_loss, penalty, d_real, d_gen)
+    return d_loss + penalty, _metrics(d_loss, penalty, all_real, all_gen)
 
 
 def std_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
@@ -126,7 +136,8 @@ def simclr_only_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
     real_images = torch.cat([images, images], dim=0)
     _, aux = D(ctx.augment.apply(real_images, draws.aug))
     views = l2_normalize_rows(at_least_f32(aux["projection"]))
-    simclr_loss = nt_xent(views[:n], views[n:], temperature=ctx.temp)
+    simclr_loss = nt_xent(gather_rows(views[:n]), gather_rows(views[n:]),
+                          temperature=ctx.temp)
     zero = 0.0 * simclr_loss
     return simclr_loss, _metrics(simclr_loss, zero, zero, zero)
 
@@ -143,12 +154,15 @@ def contrad_loss_D(ctx: ModeCtx, D, images, gen_images, draws: Draws,
                    sg_linear=True)
 
     views = l2_normalize_rows(at_least_f32(aux["projection"]))
-    simclr_loss = nt_xent(views[:n], views[n:2 * n], temperature=ctx.temp)
+    simclr_loss = nt_xent(gather_rows(views[:n]),
+                          gather_rows(views[n:2 * n]), temperature=ctx.temp)
     reals = l2_normalize_rows(at_least_f32(aux["projection2"]))
-    sup_loss = supcon_fake(reals[:n], reals[n:2 * n], reals[2 * n:],
-                           temperature=ctx.temp)
+    sup_loss = supcon_fake(gather_rows(reals[:n]),
+                           gather_rows(reals[n:2 * n]),
+                           gather_rows(reals[2 * n:]), temperature=ctx.temp)
 
-    d_real, d_gen = d_all[:n], d_all[2 * n:3 * n]
+    d_real = gather_rows(d_all[:n])
+    d_gen = gather_rows(d_all[2 * n:3 * n])
     head_loss = gan_d_loss(d_real, d_gen, ctx.loss_type)
     contrastive = simclr_loss + ctx.lbd_a * sup_loss
     return contrastive + head_loss, _metrics(contrastive, head_loss, d_real,
@@ -159,14 +173,14 @@ def std_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
                ) -> torch.Tensor:
     """G loss on the fakes as they are (``aug_params`` unused)."""
     d_gen, _ = D(gen_images, y=y_gen)
-    return gan_g_loss(d_gen, ctx.loss_type)
+    return gan_g_loss(gather_rows(d_gen), ctx.loss_type)
 
 
 def augmented_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
                      ) -> torch.Tensor:
     """G loss on augmented fakes (``_augmented_loss_G_lsgan_ok``)."""
     d_gen, _ = D(ctx.augment.apply(gen_images, aug_params), y=y_gen)
-    return gan_g_loss(d_gen, ctx.loss_type)
+    return gan_g_loss(gather_rows(d_gen), ctx.loss_type)
 
 
 def aug_both_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
@@ -175,7 +189,7 @@ def aug_both_loss_G(ctx: ModeCtx, D, gen_images, aug_params, y_gen=None
     aug_both G loss has no lsgan branch; ``_augmented_loss_G``)."""
     d_gen, _ = D(ctx.augment.apply(gen_images, aug_params), y=y_gen)
     loss_type = "wgan" if ctx.loss_type == "lsgan" else ctx.loss_type
-    return gan_g_loss(d_gen, loss_type)
+    return gan_g_loss(gather_rows(d_gen), loss_type)
 
 
 class Mode(NamedTuple):

@@ -16,6 +16,9 @@ The penalties' D passes iterate spectral norm from the stored ``u`` but do
 not persist it (``persist=False``): the mode's main D pass owns the phase's
 one power iteration. Their draws, ``alpha`` and the augmentation's
 parameters, are arguments: :func:`sample` makes them.
+
+In a world of processes each rank computes its rows' per-sample terms, and
+their means are taken over the global batch (``gather_rows``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from contrad_tpu_torch import at_least_f32
+from contrad_tpu_torch.parallel import gather_rows
 
 
 def sample(kind: str, augment, shape: Tuple[int, ...], rng) -> Any:
@@ -53,12 +57,13 @@ def gradient_penalty(D, images, gen_images, alpha, lbd: float, y=None
     d, _ = D(interp, y=y, persist=False)
     (grads,) = torch.autograd.grad(d.sum(), interp, create_graph=True)
     norms = torch.linalg.vector_norm(at_least_f32(grads).reshape(n, -1), dim=1)
-    return lbd * ((norms - 1.0) ** 2).mean()
+    return lbd * gather_rows((norms - 1.0) ** 2).mean()
 
 
 def consistency(D, images, d_real, augment, params, lbd: float, y=None):
     d_aug, _ = D(augment.apply(images, params), y=y, persist=False)
-    return lbd * ((at_least_f32(d_real) - at_least_f32(d_aug)) ** 2).mean()
+    return lbd * gather_rows(
+        (at_least_f32(d_real) - at_least_f32(d_aug)) ** 2).mean()
 
 
 def balanced_consistency(D, all_images, d_real, d_gen, augment, params,
@@ -66,8 +71,8 @@ def balanced_consistency(D, all_images, d_real, d_gen, augment, params,
     d_aug, _ = D(augment.apply(all_images, params), y=y_all, persist=False)
     n = all_images.shape[0] // 2
     d_aug = at_least_f32(d_aug)
-    reg_real = ((at_least_f32(d_real) - d_aug[:n]) ** 2).mean()
-    reg_gen = ((at_least_f32(d_gen) - d_aug[n:]) ** 2).mean()
+    reg_real = gather_rows((at_least_f32(d_real) - d_aug[:n]) ** 2).mean()
+    reg_gen = gather_rows((at_least_f32(d_gen) - d_aug[n:]) ** 2).mean()
     return lbd * reg_real + lbd2 * reg_gen
 
 

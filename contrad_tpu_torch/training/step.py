@@ -40,6 +40,15 @@ can be passed in instead (``train_step(..., draws=)``, the phases' and the
 phase losses' arguments), so the tests can feed the draws JAX made. A step
 never waits on the device: its metrics stay there until the caller reads
 them.
+
+In a world of processes (``parallel/``) a step computes the global batch's
+function, the one a world of one computes: each rank takes its rows of the
+batch, ``draw_step`` draws the global step's draws on every rank from the
+shared generator and keeps this rank's rows of each per-sample draw
+(:func:`~contrad_tpu_torch.parallel.mesh.local_rows`; a per-batch draw stays
+whole), the losses are global (``modes.py``), and the gradients are summed
+over the world before each optimiser steps. So the generator, the
+parameters, the optimisers and the metrics are the same on every rank.
 """
 
 from __future__ import annotations
@@ -53,6 +62,9 @@ from contrad_tpu_torch import at_least_f32
 from contrad_tpu_torch.augment import AugRng
 from contrad_tpu_torch.models.stylegan2 import GStylegan2
 from contrad_tpu_torch.ops.spectral_norm import commit_u
+from contrad_tpu_torch.parallel import (
+    all_reduce_grads, data_shard, gather_rows)
+from contrad_tpu_torch.parallel.mesh import local_rows
 from contrad_tpu_torch.training.modes import Draws, ModeCtx, draw_d, get_mode
 from contrad_tpu_torch.training.state import ScheduledAdam, ema_update
 
@@ -70,9 +82,11 @@ def to_float(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 def _grads(loss: torch.Tensor, module: torch.nn.Module):
     """d loss / d each parameter of ``module``; zeros for the parameters the
-    loss does not reach (a head the mode leaves unused), as in JAX."""
-    return torch.autograd.grad(loss, list(module.parameters()),
-                               allow_unused=True, materialize_grads=True)
+    loss does not reach (a head the mode leaves unused), as in JAX. In a
+    world, summed over the ranks (``all_reduce_grads``)."""
+    return all_reduce_grads(torch.autograd.grad(
+        loss, list(module.parameters()), allow_unused=True,
+        materialize_grads=True))
 
 
 class StepDraws(NamedTuple):
@@ -173,8 +187,17 @@ class GANTrainer:
         """The G loss's augmentation of a fake batch of ``shape``."""
         return self.draw_aug(shape) if self.mode.g_aug else None
 
-    def draw_step(self, shape) -> StepDraws:
-        """All draws of one step on a real batch of ``shape``
+    def draw_step(self, shape, **kwargs) -> StepDraws:
+        """All draws of one step on this rank's real batch of ``shape``
+        (n_critic * N, H, W, C): the global step's draws (:meth:`
+        draw_global`), of which this rank keeps its rows."""
+        world = data_shard()[1]
+        shape = (shape[0] * world,) + tuple(shape[1:])
+        return local_rows(self.draw_global(shape, **kwargs),
+                          shape[0] // self.n_critic)
+
+    def draw_global(self, shape) -> StepDraws:
+        """All draws of one step on a global real batch of ``shape``
         (n_critic * N, H, W, C)."""
         real = (self.real_augment.sample(tuple(shape), self.rng)
                 if self.real_augment is not None else None)
@@ -284,7 +307,8 @@ class StyleGAN2Trainer(GANTrainer):
         x.requires_grad_(True)
         d, _ = self.discriminator(x, persist=False)
         (grads,) = torch.autograd.grad(d.sum(), x, create_graph=True)
-        return at_least_f32(grads).reshape(x.shape[0], -1).pow(2).sum(dim=1).mean()
+        return gather_rows(at_least_f32(grads).reshape(x.shape[0], -1)
+                           .pow(2).sum(dim=1)).mean()
 
     def d_loss(self, images, gen_images, draws: Draws,
                r1_aug_params: Optional[Any] = None
@@ -303,11 +327,11 @@ class StyleGAN2Trainer(GANTrainer):
 
     # ------------------------------------------------------------- train
 
-    def draw_step(self, shape, with_r1: bool = False) -> StepDraws:
-        """All draws of one step on a real batch of ``shape``
+    def draw_global(self, shape, with_r1: bool = False) -> StepDraws:
+        """All draws of one step on a global real batch of ``shape``
         (n_critic * N, H, W, C). The first D sub-step reuses the G phase's
         fakes, so its G draws are None."""
-        draws = super().draw_step(shape)
+        draws = super().draw_global(shape)
         (_, first), *others = draws.critic
         batch = (shape[0] // self.n_critic,) + tuple(shape[1:])
         return draws._replace(critic=[(None, first)] + others,

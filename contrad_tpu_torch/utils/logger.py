@@ -84,6 +84,26 @@ class Logger:
         self.log_file.close()
 
 
+class RankLogger:
+    """The logger of a rank other than 0 in a world of processes: the run
+    directory is rank 0's, and only rank 0 writes there (the reference's
+    rank gating, ``train_gan.py:192-225``), so this one writes and prints
+    nothing."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+
+    def log(self, string: str) -> None:
+        pass
+
+    log_dirname = log
+
+    def scalar_summary(self, tag: str, value, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
 
 def append_csv(path: str, header, row) -> None:
     """Append ``row`` to the CSV at ``path``, writing ``header`` first where

@@ -22,6 +22,16 @@ goes on without FID and says so in its log, as the JAX CLIs do (they catch
 any error there; the port catches ``FileNotFoundError`` only, so that a
 fault of the card or of a kernel while the statistics are computed stops
 the run).
+
+In a world of processes (``--multihost``) rank 0 alone writes the run
+directory, its logs, CSV and checkpoints, with a barrier around each save;
+every rank restores on ``--resume``. The in-loop FID is collective: every
+rank samples its share and the features are gathered; ``world_all``
+decides whether it runs at all and ``broadcast_floats`` settles the score,
+the best and whether it is the best from rank 0's (the JAX CLIs'
+``train_gan.py:305-315,405-415``). The progress GIF and the augmentation
+preview are off, as in JAX (``train_gan.py:158-165``). A gloo world cannot
+capture its collectives in a CUDA graph, so it runs the eager step.
 """
 
 from __future__ import annotations
@@ -35,9 +45,12 @@ import numpy as np
 import torch
 
 from contrad_tpu_torch.config import dump_toml
+from contrad_tpu_torch.parallel import (
+    barrier, broadcast_floats, broadcast_object, data_shard, world_all)
+from contrad_tpu_torch.parallel.mesh import backend
 from contrad_tpu_torch.utils.checkpoint import (
     find_restorable, has_checkpoint, restore_checkpoint, save_checkpoint)
-from contrad_tpu_torch.utils.logger import Logger
+from contrad_tpu_torch.utils.logger import Logger, RankLogger
 
 
 class History(list):
@@ -93,6 +106,11 @@ def add_run_args(p) -> None:
                    help="Capture a torch.profiler trace (CPU and CUDA "
                         "activity) of N steps, written to <logdir>/profile "
                         "(view with tensorboard); runs the eager step")
+    p.add_argument("--multihost", action="store_true",
+                   help="Join a world of processes, one per card (torchrun, "
+                        "or CONTRAD_COORDINATOR / CONTRAD_NUM_PROCESSES / "
+                        "CONTRAD_PROCESS_ID): data parallel over the global "
+                        "batch, NCCL on cuda, gloo with --device cpu")
 
 
 def add_precision_args(p) -> None:
@@ -123,17 +141,54 @@ def optimizer_levers(P) -> Dict[str, Optional[torch.dtype]]:
             "grads_dtype": reduced_dtype(P.opt_grads)}
 
 
-def open_run(P, cfg, run_name: str, subdir: str) -> Logger:
+def join_world(P):
+    """The device the CLI trains on: with ``--multihost`` this process's
+    card of the world it joins (``parallel.init_distributed``), else
+    ``--device``."""
+    from contrad_tpu_torch import resolve_device
+    from contrad_tpu_torch.parallel import init_distributed
+
+    return (init_distributed(P.device) if getattr(P, "multihost", False)
+            else resolve_device(P.device))
+
+
+def check_world(P, opt, discriminator) -> None:
+    """What a world asks of the run, at start-up: a global batch that
+    divides by the world (the JAX CLIs' error text), and, for a
+    discriminator with a minibatch stddev, groups that stay on one rank;
+    the progress GIF and the augmentation preview off."""
+    from contrad_tpu_torch.models.stylegan2.discriminator import (
+        ResidualBackbone, stddev_group_size)
+
+    rank, world = data_shard()
+    if opt.batch_size % world:
+        raise ValueError(f"global batch {opt.batch_size} must divide device "
+                         f"count {world}")
+    if world > 1 and isinstance(discriminator.backbone, ResidualBackbone):
+        stddev_group_size(opt.batch_size // world, world)
+    if world > 1 and not P.no_gif:
+        print(f"[multihost rank {rank}] in-loop GIF/aug-preview disabled "
+              f"({world} processes); FID runs collectively", flush=True)
+        P.no_gif = True
+
+
+def open_run(P, cfg, run_name: str, subdir: str):
     """The run's logger: in ``--resume``'s directory, or in a new one under
     ``<logdir_root>/<subdir>/<run_name><_comment>/`` that gets the
-    effective config as ``config.toml``."""
-    if P.resume:
-        return Logger(None, resume=P.resume, root=P.logdir_root)
-    comment = f"_{P.comment}" if P.comment else ""
-    logger = Logger(f"{run_name}{comment}", subdir=subdir, root=P.logdir_root)
-    with open(os.path.join(logger.logdir, "config.toml"), "w") as f:
-        f.write(dump_toml(cfg))
-    return logger
+    effective config as ``config.toml``. In a world rank 0 makes it and the
+    other ranks get a :class:`RankLogger` of the same directory."""
+    logger = None
+    if data_shard()[0] == 0:
+        if P.resume:
+            logger = Logger(None, resume=P.resume, root=P.logdir_root)
+        else:
+            comment = f"_{P.comment}" if P.comment else ""
+            logger = Logger(f"{run_name}{comment}", subdir=subdir,
+                            root=P.logdir_root)
+            with open(os.path.join(logger.logdir, "config.toml"), "w") as f:
+                f.write(dump_toml(cfg))
+    logdir = broadcast_object(None if logger is None else logger.logdir)
+    return logger if logger is not None else RankLogger(logdir)
 
 
 def run_state(trainer, loader, step: int, meta: Dict[str, Any]
@@ -212,15 +267,27 @@ class Evaluation:
         from contrad_tpu_torch.evaluate.fid import FIDScore
         from contrad_tpu_torch.evaluate.sharded import make_feature_sampler
 
+        # in a world rank 0 goes first: it computes the reference
+        # statistics where they are not cached, the other ranks read them
+        first = data_shard()[0] == 0
+        if not first:
+            barrier()
+        fid = None
         try:
             fid = FIDScore(opt.dataset, opt.fid_size, n_avg=P.n_eval_avg,
                            embedder=P.fid_embed, device=trainer.device)
-            self.feature_fn = make_feature_sampler(
-                trainer, embedder=P.fid_embed, use_ema=use_ema,
-                batch_per_call=min(512, opt.fid_size))
-            self.fid = fid
         except FileNotFoundError as e:  # the weights or the statistics
             logger.log(f"FID disabled: {e}")
+        if first:
+            barrier()
+        if not world_all(fid is not None):
+            if fid is not None:
+                logger.log("FID disabled: not available on every process")
+            return
+        self.feature_fn = make_feature_sampler(
+            trainer, embedder=P.fid_embed, use_ema=use_ema,
+            batch_per_call=min(512, opt.fid_size))
+        self.fid = fid
 
     @property
     def generator(self):
@@ -272,12 +339,21 @@ def evaluate(P, logger: Logger, history: History, trainer, loader, step: int,
     t0 = time.perf_counter()
     logger.log_dirname(f"Steps {step + 1}")
     ev, fid, rec = evaluation, evaluation.fid, dict(step=step)
+    writer = data_shard()[0] == 0
     if fid is not None:
         avg = fid.update(step, feature_fn=ev.feature_fn)
+        # rank 0's score: host sqrtm and np.cov may differ in the last ulps
+        # between ranks, and a diverged is_best would desynchronise the
+        # checkpoint writes below
+        avg, fid.best, is_best = broadcast_floats(avg, fid.best,
+                                                  float(fid.is_best))
+        fid.is_best = bool(is_best)
+        fid.history[-1][-1] = avg
         rec.update(fid=avg, fid_best=fid.best, is_best=fid.is_best,
                    fid_seconds=time.perf_counter() - t0)
-        fid.save(os.path.join(logger.logdir,
-                              f"results_fid_{ev.eval_seed}.csv"))
+        if writer:
+            fid.save(os.path.join(logger.logdir,
+                                  f"results_fid_{ev.eval_seed}.csv"))
         for tag, value in (("", avg), ("/best", fid.best),
                            ("/diversity", fid.last_diversity),
                            ("/meanshift", fid.last_meanshift)):
@@ -295,16 +371,21 @@ def evaluate(P, logger: Logger, history: History, trainer, loader, step: int,
                            else [])
              + ([f"step_{step}"] if step % P.save_every == 0 else []))
     for name in names:
+        barrier()
         t1 = time.perf_counter()
-        path = save_checkpoint(logger.logdir,
-                               run_state(trainer, loader, step, meta), name)
+        if writer:
+            save_checkpoint(logger.logdir,
+                            run_state(trainer, loader, step, meta), name)
+        barrier()
+        path = os.path.join(logger.logdir, "ckpt", f"{name}.pt")
         save = dict(name=name, step=step, bytes=os.path.getsize(path),
                     seconds=time.perf_counter() - t1)
         history.saves.append(save)
         logger.log(f"saved ckpt/{name}.pt: {save['bytes'] / 2**20:.2f} MiB "
                    f"in {save['seconds']:.3f} s")
-    save_eval_state(logger.logdir, ev.eval_seed, fid=fid,
-                    fixed_gen=ev.fixed_gen)
+    if writer:
+        save_eval_state(logger.logdir, ev.eval_seed, fid=fid,
+                        fixed_gen=ev.fixed_gen)
     rec["seconds"] = time.perf_counter() - t0
     history.evals.append(rec)
     return rec["seconds"]
@@ -342,17 +423,27 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
         BlockDispatcher, resolve_steps_per_dispatch)
     from contrad_tpu_torch.training.graph import BlockRunner
 
-    k_dispatch = resolve_steps_per_dispatch(
-        P.steps_per_dispatch, getattr(loader, "supports_indexed", False),
-        P.trace_steps, P.print_every, P.evaluate_every, P.save_every)
+    if backend() == "gloo":
+        if P.steps_per_dispatch > 1:
+            raise ValueError(
+                f"--steps_per_dispatch {P.steps_per_dispatch}: a gloo world "
+                f"cannot capture its collectives in a CUDA graph; use 0 or 1")
+        logger.log("Multi-step dispatch: 1 step/program (a gloo world runs "
+                   "the eager step)")
+        k_dispatch = 1
+    else:
+        k_dispatch = resolve_steps_per_dispatch(
+            P.steps_per_dispatch, getattr(loader, "supports_indexed", False),
+            P.trace_steps, P.print_every, P.evaluate_every, P.save_every)
     dispatcher = BlockDispatcher(loader, k_dispatch, opt.max_steps)
     if k_dispatch > 1:
         logger.log(f"Multi-step dispatch: {k_dispatch} steps/program")
     runner = BlockRunner(trainer, loader)
     history = History(logger.logdir)
     history.dispatch = dict(k=k_dispatch, stats=runner.stats)
-    trace = (start_trace(logger.logdir, trainer.device) if P.trace_steps > 0
-             else None)
+    writer = data_shard()[0] == 0
+    trace = (start_trace(logger.logdir, trainer.device)
+             if P.trace_steps > 0 and writer else None)
     sync = cuda_sync(trainer.device)
     t0, steps, step = time.perf_counter(), 0, first
     while step <= opt.max_steps:
@@ -379,7 +470,8 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
             logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
                        % (step, m["G_loss"], m["D_loss"], steps
                           * opt.batch_size * opt.n_critic / max(dt, 1e-9)))
-            print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
+            if writer:
+                print("  " + " ".join(f"{k}={v:.5g}" for k, v in m.items()))
             for name, value in m.items():
                 logger.scalar_summary("gan/train/" + name, value, step)
             history.append(dict(m, step=step, seconds_per_step=dt / steps))

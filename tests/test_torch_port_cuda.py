@@ -382,3 +382,62 @@ def test_a_capture_that_fails_raises(cuda):
     idx = [loader.next_indices()[0] for _ in range(2)]
     with pytest.raises(RuntimeError):
         BlockRunner(trainer, loader).run(idx)
+
+
+@pytest.mark.parametrize("which", ["stylegan2_tiny", "conditional_flagship"])
+def test_an_nccl_world_of_one_replays_bitwise_as_the_worldless_step(
+        cuda, monkeypatch, which):
+    """An NCCL world of one (``parallel.init_distributed``): two blocks of
+    four steps as CUDA graph replays, the step's gathers and gradient
+    all-reduce captured inside the graphs, bitwise equal (cuDNN
+    deterministic) to the same steps eagerly without a world; the
+    collectives counted at each replay."""
+    import numpy as np
+
+    from contrad_tpu_torch import train_gan, train_stylegan2
+    from contrad_tpu_torch.hostenv import RENDEZVOUS_VARS, free_port, rank_env
+    from contrad_tpu_torch.parallel import collectives, mesh
+    from contrad_tpu_torch.training.graph import _clone
+
+    if which == "stylegan2_tiny":
+        loader, trainer = _tiny_trainer(train_stylegan2, [
+            "configs/gan/stylegan2/c10_style64.toml", "stylegan2_tiny",
+            "--mode", "contrad", "--aug", "simclr", "--lbd_r1", "0.1",
+            "--d_reg_every", "2", "--use_warmup"])
+    else:
+        loader, trainer = _tiny_trainer(train_gan, [
+            "configs/gan/cifar10/c10_b64.toml", "sndcgan", "--mode",
+            "contrad", "--aug", "simclr", "--use_warmup", "--conditional"],
+            dataset="synthetic_16_256")
+    pairs = [loader.next_indices() for _ in range(8)]
+    idx = [p[0] for p in pairs]
+    labels = [p[1] for p in pairs] if trainer.conditional else None
+    steps = np.arange(1, 9)
+    r1 = (steps % 2 == 0) & (which == "stylegan2_tiny")
+    ema = np.where(steps > 2, 0.99, 0.0)
+    snapshot = _clone(trainer.state_dict())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for k in RENDEZVOUS_VARS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in rank_env({}, free_port(), 0, 1).items():
+        monkeypatch.setenv(k, v)
+    try:
+        solo, _ = _block_run(trainer, loader, snapshot, False, idx, ema, r1,
+                             labels)
+        mesh.init_distributed("cuda")
+        assert mesh.backend() == "nccl" and mesh.data_shard() == (0, 1)
+        before = dict(collectives.counts)
+        world, runner = _block_run(trainer, loader, snapshot, True, idx, ema,
+                                   r1, labels)
+    finally:
+        mesh.shutdown()
+        torch.backends.cudnn.deterministic = deterministic
+    assert solo.keys() == world.keys()
+    for name, a in solo.items():
+        assert torch.equal(a, world[name]), name
+    captured = runner.stats["captured_collectives"]
+    assert captured and all(c["calls"] > 0 for c in captured.values())
+    replayed = sum(captured[k]["calls"] * n
+                   for k, n in runner.stats["replays"].items())
+    assert collectives.counts["calls"] - before["calls"] >= replayed
