@@ -150,7 +150,28 @@ result line:
    1e-4 * max, every tensor bitwise
    equal across the ranks, the blur launching on each rank as a world-1
    step does (phase 3's counts); per-rank ms/step and the collectives'
-   share; which collectives gloo takes on CUDA tensors.
+   share; which collectives gloo takes on CUDA tensors;
+13. the data paths (``contrad_tpu_torch/data``), cuDNN deterministic: (a)
+   the 512x512 recipe (batch 16) and the flagship (batch 512) through their
+   CLIs, 8 steps each, host-fed (``DeviceBatchIterator.MAX_BYTES`` below
+   the set: ``PrefetchIterator`` over ``BatchIterator``, pinned copies on a
+   side stream) and device-resident, eager, and device-resident as graph
+   blocks of 4: every tensor of the step-8 checkpoints bitwise equal
+   between the loaders, the blur launching as phase 3 counts (warm-up
+   steps included); ms/step of each, the prefetch worker's
+   gather and copy ms and the step's wait per batch, and a profile of 3
+   host-fed steps (idle share); (b) the native gather (``data/native.py``)
+   against ``np.take`` at 16 and 64 rows of 512x512 and 512 rows of 32x32,
+   bitwise, with MB/s of each and of the pinned host-to-card copy; (c) the
+   sharded path as a gloo world of two on the one card
+   (``parallel/_mh_worker.py --max_bytes``: one chunk a rank, rotated round
+   the ring at each epoch boundary): the 512x512 recipe on 64 rows (shards
+   of 32, 8 rows a rank a step: 4 steps an epoch) for 6 steps and the
+   32x32 StyleGAN2 recipe on 512 rows for 10, each crossing one rotation:
+   every batch bitwise the dataset rows the stream names, each rank's
+   shard bitwise its chunk (its neighbour's after the rotation) in storage
+   that never moves, and the world's steps held to world 1 fed the same
+   global batches (``--feed_world 2``) under phase 12b's rule.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -614,7 +635,8 @@ def run_cli(main, recipe, dataset: str, steps: int, batch=None,
     timed = history[1:] or history
     ms_step = 1e3 * sum(r["seconds_per_step"] for r in timed) / len(timed)
     return dict(history=history, logdir=history.logdir, saves=history.saves,
-                dispatch=history.dispatch, batch=batch, launches=launches,
+                dispatch=history.dispatch, data=history.data, batch=batch,
+                launches=launches,
                 scalar_launches=scalar, launches_per_step=launches / steps,
                 ms_per_step=ms_step, img_per_s=batch / (ms_step * 1e-3),
                 peak_bytes=peak)
@@ -678,9 +700,10 @@ def profile(cli, recipe, dataset: str, batch=None, steps: int = 3,
             **step_kwargs):
     """torch.profiler over ``steps`` train steps (after 2 untimed ones) of
     the trainer that the CLI module ``cli`` builds for ``recipe`` on
-    ``dataset``: kernel time by class, the largest kernels, the idle share
-    and launches per step (``class_report``), with the blur's launches and
-    device ms per step."""
+    ``dataset``, each step's batch from the CLI's loader (a host-fed one's
+    gather and copy included): kernel time by class, the largest kernels,
+    the idle share and launches per step (``class_report``), with the
+    blur's launches and device ms per step."""
     from contrad_tpu_torch.ops import blur
 
     override = [f"options.dataset={dataset}"]
@@ -688,11 +711,19 @@ def profile(cli, recipe, dataset: str, batch=None, steps: int = 3,
         override.append(f"options.batch_size={batch}")
     P = cli.parse_args(recipe + ["--seed", "0", "--override"] + override)
     _, loader, trainer = cli.build(P)
+
+    def step():
+        images = next(loader)
+        if isinstance(images, tuple):  # a host-fed loader's (images, labels)
+            images = images[0]
+        trainer.train_step(images, **step_kwargs)
+
     for _ in range(2):
-        trainer.train_step(next(loader), **step_kwargs)
+        step()
     blur.blur2d.launches = 0
-    report = class_report(*profile_rows(
-        lambda: trainer.train_step(next(loader), **step_kwargs), steps))
+    report = class_report(*profile_rows(step, steps))
+    if hasattr(loader, "close"):
+        loader.close()
     report["blur_launches_per_step"] = blur.blur2d.launches / steps
     report["blur_ms_per_step"] = sum(
         k["ms"] for k in report["kernels"] if "blur2d_kernel" in k["name"])
@@ -2550,7 +2581,8 @@ def world_launches(name: str, steps: int, per_step) -> list:
             else per_step["stylegan2_512"] for s in range(1, steps + 1)]
 
 
-def world_of_two(name, flags, per_step):
+def world_of_two(name, flags, per_step, ref_flags=(), rank_flags=(),
+                 tag: str = "world2"):
     """Phase 12b for one recipe: the worker's recipe as a gloo world of two
     on the one card, eager, against the same recipe in this process without
     a world (cuDNN deterministic and TF32 off in both): step 1's losses and
@@ -2559,15 +2591,18 @@ def world_of_two(name, flags, per_step):
     pre-activation within BRANCH_TOL of 0 (``BranchCarry``; a differing
     branch must lie within it of 0 in both runs), every tensor bitwise
     equal across the ranks, the blur launching on each rank as a world-1
-    step does. Returns the numbers."""
+    step does. ``ref_flags`` and ``rank_flags`` go to world 1 and to the
+    ranks only (phase 13c: the sharded loader and world 1's feed of its
+    global batches). Returns the numbers, with what each run's data path
+    fed (the worker's ``data``)."""
     import torch
 
     from contrad_tpu_torch.ops import blur
     from contrad_tpu_torch.parallel import _mh_worker
 
     argv = ["--steps", str(WORLD_B_STEPS)] + flags + ["--device", "cuda"]
-    out = os.path.join(LOG_ROOT, f"world2_{name}")
-    args = _mh_worker.parse_args(argv + ["--out", out])
+    out = os.path.join(LOG_ROOT, f"{tag}_{name}")
+    args = _mh_worker.parse_args(argv + list(ref_flags) + ["--out", out])
     steps = args.steps
     blur.blur2d.launches = blur.blur2d.scalar_launches = 0
     carry = BranchCarry()
@@ -2581,7 +2616,8 @@ def world_of_two(name, flags, per_step):
                      "import sys, chip_smoke; chip_smoke.world_rank("
                      "sys.argv[1:])", branches, "--rank", str(r), "--world",
                      "2", "--time_collectives",
-                     "--deterministic", "--out", out] + argv, 2, "gloo")
+                     "--deterministic", "--out", out] + argv
+          + list(rank_flags), 2, "gloo")
     ranks = [torch.load(f"{out}.rank{r}.pt", weights_only=False)
              for r in range(2)]
     carried = [torch.load(f"{out}.rank{r}.branches.pt", weights_only=False)
@@ -2645,7 +2681,8 @@ def world_of_two(name, flags, per_step):
                 branch_flips=flips, branches=carried,
                 launches_per_step=launches, ms_world1=ms[0],
                 ms_ranks=ms[1:], collective_ms=coll, collective_calls=calls,
-                collective_mib=mib, gloo_cuda=probe)
+                collective_mib=mib, gloo_cuda=probe,
+                data=dict(world1=ref["data"], ranks=[a["data"], b["data"]]))
 
 
 def world_phase(per_step) -> dict:
@@ -2691,6 +2728,233 @@ def world_phase(per_step) -> dict:
     log(f"  gloo on CUDA tensors: {probe}")
     out["seconds"] = time.perf_counter() - t12
     log(f"  phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------- the data paths
+
+DATA_STEPS = 8  # phase 13a: two graph blocks of GRAPH_K steps
+DATA_TURNS = ("host", "resident")  # the spread: phases 7 and 11's eager runs
+# phase 13c: the worker's recipes on sets the loader must shard in a world
+# of two (--max_bytes between half the set and the set), TF32 off; each
+# crosses one epoch boundary, so one ring rotation
+SHARD_RECIPES = (
+    ("stylegan2_512", ["--trainer", "sg2", "--arch", "stylegan2_512",
+                       "--size", "512", "--batch", str(BATCH_512), "--aug",
+                       "simclr_hq", "--lbd_r1", "0.5", "--d_reg_every", "2",
+                       "--data_rows", "64", "--steps", "6",
+                       "--max_bytes", str(40 * 2**20)]),  # of 50.3 MB
+    ("stylegan2_32", ["--trainer", "sg2", "--arch", "stylegan2", "--size",
+                      "32", "--batch", str(BATCH), "--aug", "simclr",
+                      "--lbd_r1", "0.1", "--d_reg_every", "1",
+                      "--data_rows", "512", "--steps", "10",
+                      "--max_bytes", str(2**20)]))  # of 1.57 MB
+
+
+def data_cli_runs(name, main, module, recipe, data, batch, launches):
+    """Phase 13a for one recipe: DATA_STEPS steps through its CLI host-fed
+    and device-resident (DATA_TURNS, ``--steps_per_dispatch 1``),
+    then device-resident as graph blocks of GRAPH_K; every tensor of the
+    step-8 checkpoints bitwise equal between the loaders, the blur's
+    ``launches`` a step (warm-up steps included). Then a profile of 3
+    host-fed steps. Returns the numbers."""
+    import gc
+
+    import torch
+
+    from contrad_tpu_torch import data as data_module
+    from contrad_tpu_torch.data import DeviceBatchIterator
+    from contrad_tpu_torch.training.graph import WARMUP_STEPS
+    from contrad_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    limit = DeviceBatchIterator.MAX_BYTES
+    nbytes = data_module.get_dataset(data)[0].images.nbytes
+    flags = ["--evaluate_every", str(DATA_STEPS), "--no_fid", "--no_gif"]
+    runs, want, out = {"host": [], "resident": [], "graph": []}, None, {}
+    for turn in DATA_TURNS + ("graph",):
+        k = GRAPH_K if turn == "graph" else 1
+        if turn == "host":
+            DeviceBatchIterator.MAX_BYTES = nbytes // 2
+        try:
+            r = run_cli(main, recipe + flags
+                        + ["--steps_per_dispatch", str(k)], data, DATA_STEPS,
+                        batch, k)
+        finally:
+            DeviceBatchIterator.MAX_BYTES = limit
+        path = "host-fed" if turn == "host" else "device-resident"
+        if r["dispatch"]["k"] != k or r["data"]["path"] != path:
+            raise AssertionError(f"{name} {turn}: K {r['dispatch']['k']}, "
+                                 f"data path {r['data']['path']}")
+        warm = WARMUP_STEPS if turn == "graph" else 0
+        expect_launches(r, (DATA_STEPS + warm) * launches,
+                        f"the {turn} {name} run")
+        if turn != "graph":  # graphs agree with eager steps to a tolerance
+            got = flat_tensors(restore_checkpoint(r["logdir"]))
+            want = got if want is None else want
+            differ = [key for key, v in want.items()
+                      if key not in got or not torch.equal(v, got[key])]
+            if differ or got.keys() != want.keys():
+                raise AssertionError(f"{name}: the {turn} run's checkpoint "
+                                     f"differs in {len(differ)} of "
+                                     f"{len(want)} tensors ({differ[:4]})")
+        stats = r["data"]["stats"]
+        if turn == "host":
+            n = max(stats["batches"], 1)
+            r["gather_ms"] = 1e3 * stats["gather_s"] / n
+            r["copy_ms"] = stats["copy_ms"] / max(stats["copies_timed"], 1)
+            r["wait_ms"] = 1e3 * stats["wait_s"] / n
+        log(f"  {name:13s} {turn:8s} K={k}: {r['ms_per_step']:.2f} ms/step, "
+            f"{r['img_per_s']:.1f} img/s, peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB, blur launches "
+            f"{r['launches']}"
+            + (f"; a batch: gather {r['gather_ms']:.3f} ms, copy "
+               f"{r['copy_ms']:.3f} ms ({stats['copies_timed']} timed), the "
+               f"step's wait {r['wait_ms']:.3f} ms" if turn == "host" else "")
+            + ("" if turn == "graph" else "; checkpoint bitwise"))
+        runs[turn].append({k_: v for k_, v in r.items() if k_ != "history"})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["tensors"] = len(want)
+    out["runs"] = runs
+    h = [r["ms_per_step"] for r in runs["host"]]
+    d = [r["ms_per_step"] for r in runs["resident"]]
+    g = runs["graph"][0]["ms_per_step"]
+    log(f"  {name}: host-fed {min(h):.2f}-{max(h):.2f} ms/step, resident "
+        f"{min(d):.2f}-{max(d):.2f}, graph {g:.2f} (host-fed/resident "
+        f"{sum(h) / sum(d):.3f}, host-fed/graph {sum(h) / len(h) / g:.3f}); "
+        f"{len(want)} checkpoint tensors bitwise between the loaders")
+    DeviceBatchIterator.MAX_BYTES = nbytes // 2
+    try:
+        out["profile"] = profile(module, recipe, data, batch)
+    finally:
+        DeviceBatchIterator.MAX_BYTES = limit
+    expect_launches(out["profile"], launches, f"a profiled host-fed {name} "
+                                              f"step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gather_rates(reps: int = 20) -> dict:
+    """Phase 13b: the native gather against ``np.take`` (bitwise) at 16 and
+    64 rows of 512x512 and 512 rows of 32x32, MB/s of each (the median of
+    ``reps``) and of the pinned host-to-card copy of the batch."""
+    import numpy as np
+    import torch
+
+    from contrad_tpu_torch import data as data_module
+    from contrad_tpu_torch.data import native
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for data, rows in ((DATA_512, 16), (DATA_512, 64), ("synthetic_32", 512)):
+        src = data_module.get_dataset(data)[0].images
+        idx = rng.choice(len(src), size=rows, replace=False)
+        want = np.take(src, idx, axis=0)
+        got = native.gather_native(src, idx, np.empty_like(want))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native gather of {rows} rows of {data} "
+                                 f"differs from np.take")
+        times = {"take": [], "native": []}
+        buf = np.empty_like(want)
+        for _ in range(reps):
+            for how in ("take", "native"):
+                t0 = time.perf_counter()
+                if how == "take":
+                    np.take(src, idx, axis=0, out=buf)
+                else:
+                    native.gather_native(src, idx, buf)
+                times[how].append(time.perf_counter() - t0)
+        pinned = torch.from_numpy(want).pin_memory()
+        ms = cuda_ms(lambda x: x.to("cuda", non_blocking=True), [pinned],
+                     iters=reps)
+        mb = want.nbytes / 1e6
+        row = {how: mb / float(np.median(t)) for how, t in times.items()}
+        row.update(mb=mb, copy=mb / (ms * 1e-3), copy_ms=ms,
+                   take_ms=1e3 * float(np.median(times["take"])),
+                   native_ms=1e3 * float(np.median(times["native"])),
+                   rule="native" if want.nbytes >= native.NATIVE_MIN_BYTES
+                   else "np.take")
+        out[f"{data} x{rows}"] = row
+        log(f"  {rows} rows of {data} ({mb:.2f} MB): np.take "
+            f"{row['take']:.0f} MB/s ({row['take_ms']:.3f} ms), native "
+            f"{row['native']:.0f} MB/s ({row['native_ms']:.3f} ms), pinned "
+            f"copy to the card {row['copy']:.0f} MB/s ({ms:.3f} ms); "
+            f"gather_batch takes {row['rule']}; bitwise")
+    return out
+
+
+def sharded_world(name, flags, per_step) -> dict:
+    """Phase 13c for one recipe: the worker's recipe as a gloo world of two
+    whose loader shards the set (``--max_bytes``), held to world 1 fed the
+    same global batches (``--feed_world 2``) as phase 12b holds a world
+    (``world_of_two``); every batch bitwise the rows the stream names, each
+    rank's shard its chunk before and its neighbour's after the rotation,
+    in one storage. Returns the numbers."""
+    shard_flags = flags[flags.index("--max_bytes"):]
+    common = flags[:flags.index("--max_bytes")]
+    r = world_of_two(name, common, per_step, ref_flags=["--feed_world", "2"],
+                     rank_flags=shard_flags, tag="sharded")
+    ref, ranks = r["data"]["world1"], r["data"]["ranks"]
+    steps = len(ref["rows"])
+    for rank, d in enumerate(ranks):
+        chunks = [s["chunk"] for s in d["shards"]]
+        if (d["path"] != "sharded" or not all(d["gathered_equal"])
+                or len(d["gathered_equal"]) != steps
+                or chunks != [rank, (rank - 1) % 2]
+                or not all(s["equal"] for s in d["shards"])
+                or len({s["storage"] for s in d["shards"]}) != 1):
+            raise AssertionError(f"{name} rank {rank}: data path {d['path']}, "
+                                 f"batches bitwise {d['gathered_equal']}, "
+                                 f"shards {d['shards']}")
+    if ref["path"] != "ShardedFeed" or not all(ref["gathered_equal"]) or any(
+            ref["rows"][s] != ranks[0]["rows"][s] + ranks[1]["rows"][s]
+            for s in range(steps)):
+        raise AssertionError(f"{name}: world 1 was not fed the world's "
+                             f"global batches")
+    log(f"    sharded: {steps} steps, each rank's batches bitwise the rows "
+        f"its stream names; shard storage unmoved; after the rotation "
+        f"(step {ranks[0]['shards'][1]['step']}) each rank holds its "
+        f"neighbour's chunk")
+    return r
+
+
+def data_phase(per_step) -> dict:
+    """Phase 13: the data paths (see the module docstring). Returns its
+    numbers."""
+    import gc
+
+    import torch
+
+    t13 = time.perf_counter()
+    phase(f"[13] the data paths: (a) host-fed against device-resident, "
+          f"{DATA_STEPS} steps through the CLIs, cuDNN deterministic")
+    from contrad_tpu_torch import (
+        train_gan, train_stylegan2, train_stylegan2_contraD)
+
+    out = {"a": {}, "c": {}}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    torch.backends.cudnn.deterministic = True
+    out["a"]["stylegan2_512"] = data_cli_runs(
+        "stylegan2_512", train_stylegan2_contraD.main, train_stylegan2,
+        RECIPE_512, DATA_512, BATCH_512, per_step["stylegan2_512"])
+    out["a"]["sndcgan"] = data_cli_runs(
+        "sndcgan", train_gan.main, train_gan, FLAGSHIP, "synthetic_32", None,
+        0)
+    phase("  (b) the native gather against np.take, and the pinned copy")
+    out["b"] = gather_rates()
+    phase("  (c) the sharded path: a gloo world of two on the one card "
+          "against world 1 fed its global batches (TF32 off)")
+    torch.backends.cudnn.allow_tf32 = False
+    for name, flags in SHARD_RECIPES:
+        out["c"][name] = sharded_world(name, flags, per_step)
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    out["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13: {out['seconds']:.1f} s")
     return out
 
 
@@ -2834,6 +3098,7 @@ def main() -> int:
     phase10 = bf16_phase(per_step, step_sum)
     phase11 = graph_phase(per_step)
     phase12 = world_phase(per_step)
+    phase13 = data_phase(per_step)
     logs.cleanup()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
@@ -2865,7 +3130,15 @@ def main() -> int:
                f"with warm-up)": r["launches"]
                for name, r in phase12["a"].items()},
             **{f"{name} gloo world of 2, per rank a step (phase 12b)":
-               r["launches_per_step"] for name, r in phase12["b"].items()}},
+               r["launches_per_step"] for name, r in phase12["b"].items()},
+            **{f"{name} {turn} run {i + 1}, {DATA_STEPS} steps (phase 13a"
+               + (", with warm-up)" if turn == "graph" else ")"):
+               r["launches"] for name, a in phase13["a"].items()
+               for turn, runs in a["runs"].items()
+               for i, r in enumerate(runs)},
+            **{f"{name} sharded gloo world of 2, per rank a step (phase "
+               f"13c)": r["launches_per_step"]
+               for name, r in phase13["c"].items()}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
                                   sndcgan_conditional=0)}]
     total_s = time.perf_counter() - T0
@@ -2886,7 +3159,7 @@ def main() -> int:
             stylegan2_512=dict(train=run512, profile=prof512,
                                card_vs_cpu=check512),
             evaluation=phase8, inception=phase9, bf16=phase10,
-            graphs=phase11, worlds=phase12),
+            graphs=phase11, worlds=phase12, data_paths=phase13),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

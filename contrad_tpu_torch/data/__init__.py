@@ -19,7 +19,8 @@ from typing import Optional, Tuple
 
 from contrad_tpu_torch.data.cifar import load_cifar10, load_cifar100
 from contrad_tpu_torch.data.core import (
-    ArrayDataset, DeviceBatchIterator, make_train_loader)
+    ArrayDataset, BatchIterator, DeviceBatchIterator, PrefetchIterator,
+    ShardedDeviceBatchIterator, make_train_loader)
 from contrad_tpu_torch.data.folder import load_image_folder
 from contrad_tpu_torch.data.synthetic import synthetic_dataset
 
@@ -104,7 +105,7 @@ def get_dataset_ref(dataset: str, data_path: Optional[str] = None
     raise NotImplementedError(f"unknown dataset: {dataset}")
 
 
-__all__ = ["ArrayDataset", "DeviceBatchIterator", "get_dataset",
-           "make_train_loader",
-           "get_dataset_ref", "get_image_size", "load_image_folder",
-           "synthetic_dataset", "DATA_PATH"]
+__all__ = ["ArrayDataset", "BatchIterator", "DeviceBatchIterator",
+           "PrefetchIterator", "ShardedDeviceBatchIterator", "get_dataset",
+           "make_train_loader", "get_dataset_ref", "get_image_size",
+           "load_image_folder", "synthetic_dataset", "DATA_PATH"]

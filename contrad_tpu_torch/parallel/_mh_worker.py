@@ -14,12 +14,18 @@ calls, bytes and seconds of each step, and each step's milliseconds.
 
 Two kinds of run:
 
-* a recipe, drawn by the port itself, with Adam and the sharded loader over
-  synthetic data (the JAX worker's three: the default SNDCGAN ``contrad``,
-  ``--conditional``, and ``--trainer sg2``, StyleGAN2 with EMA after an
-  EMA-start step and the lazy R1 every ``--d_reg_every`` steps), at the JAX
-  worker's widths (SNDCGAN ngf = ndf = 8, nz = 16, d_hidden = 32;
-  ``stylegan2_tiny``) or at any architecture of the registry (``--arch``):
+* a recipe, drawn by the port itself, with Adam and the loader that
+  ``make_train_loader`` chooses over synthetic data (the JAX worker's
+  three: the default SNDCGAN ``contrad``, ``--conditional``, and
+  ``--trainer sg2``, StyleGAN2 with EMA after an EMA-start step and the
+  lazy R1 every ``--d_reg_every`` steps), at the JAX worker's widths
+  (SNDCGAN ngf = ndf = 8, nz = 16, d_hidden = 32; ``stylegan2_tiny``) or at
+  any architecture of the registry (``--arch``). ``--max_bytes`` moves the
+  loader's limit, so that a world shards the set or streams it from the
+  host, and ``--feed_world W`` feeds world 1 the global batches of a
+  sharded world of W ranks. Each step's images are checked against the
+  dataset rows that the stream names, and a shard against its chunk after
+  each rotation (``data`` in the output):
 
       python -m contrad_tpu_torch.parallel._mh_worker --rank 0 --world 2 \\
           --port 12345 --device cpu --steps 4 --out /tmp/run
@@ -185,6 +191,82 @@ def run_case(case: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
             "state": flat_state(trainer.state_dict()), "steps": meter.rows}
 
 
+class ShardedFeed:
+    """World 1's feed of the global batches that a sharded world of
+    ``world`` ranks trains on (``ShardedDeviceBatchIterator``, one chunk a
+    rank): each step, every rank's rows of each critic sub-batch in rank
+    order (the port's grouping), gathered from the whole set on the
+    device."""
+
+    supports_indexed = True
+
+    def __init__(self, dataset, batch: int, n_critic: int, seed: int,
+                 world: int, device: torch.device):
+        from contrad_tpu_torch.data.core import DeviceBatchIterator, ShardPlan
+
+        self.plan = ShardPlan(len(dataset), batch * n_critic, world, seed)
+        self.n_critic, self.world = n_critic, world
+        self.whole = DeviceBatchIterator(dataset, batch * n_critic,
+                                         device=device)
+        self.labels = self.whole._labels
+        self.epoch, self._pos = 0, None
+
+    def next_indices(self):
+        import numpy as np
+
+        plan = self.plan
+        if self._pos is None or self._pos + plan.local_batch > plan.shard_len:
+            if self._pos is not None:
+                self.epoch += 1
+            self._orders = [plan.order(self.epoch, r)
+                            for r in range(self.world)]
+            self._pos = 0
+        ranks = [plan.chunks[plan.chunk_of(r, self.epoch)][
+            self._orders[r][self._pos:self._pos + plan.local_batch]]
+            for r in range(self.world)]
+        self._pos += plan.local_batch
+        rows = np.concatenate([part for j in range(self.n_critic)
+                               for part in (np.split(r, self.n_critic)[j]
+                                            for r in ranks)])
+        return rows.astype(np.int32), self.labels[rows]
+
+    def materialize(self, idx):
+        return self.whole.materialize(idx)
+
+
+class DataAudit:
+    """What the data path fed, checked on the host each step: the images
+    against the dataset's rows that the stream names (a sharded stream's
+    ``dataset_rows``, an index loader's rows), and a sharded rank's whole
+    shard against the chunk it must hold after each epoch's rotation, with
+    its storage's address (a rotation is in place)."""
+
+    def __init__(self, loader, dataset):
+        self.loader, self.dataset = loader, dataset
+        self.record: Dict[str, Any] = {
+            "path": getattr(loader, "path", type(loader).__name__),
+            "rows": [], "gathered_equal": [], "shards": []}
+
+    def check(self, idx, images) -> None:
+        loader, rec = self.loader, self.record
+        if idx is None:  # host-fed: the batch is the stream's own gather
+            return
+        rows = (loader.dataset_rows(idx) if hasattr(loader, "dataset_rows")
+                else idx)
+        want = torch.from_numpy(self.dataset.images[rows])
+        rec["rows"].append(rows.tolist())
+        rec["gathered_equal"].append(bool(torch.equal(images.cpu(), want)))
+        if hasattr(loader, "plan") and hasattr(loader, "rank") and (
+                not rec["shards"] or rec["shards"][-1]["epoch"]
+                != loader.epoch):
+            chunk = loader.plan.chunk_of(loader.rank, loader.epoch)
+            rec["shards"].append(dict(
+                step=len(rec["rows"]), epoch=loader.epoch, chunk=chunk,
+                equal=bool(torch.equal(loader.images.cpu(), torch.from_numpy(
+                    self.dataset.images[loader.plan.chunks[chunk]]))),
+                storage=loader.images.data_ptr()))
+
+
 StepContext = Optional[Callable[[int], ContextManager]]
 
 
@@ -193,10 +275,10 @@ def run_recipe(args, device: torch.device,
     """The recipe the flags name, drawn by the port (see the module
     docstring); ``step_context(step)``, where given, is entered around each
     step (``chip_smoke.py`` carries leaky-ReLU branches with it)."""
-    from contrad_tpu_torch.data.core import DeviceBatchIterator
+    from contrad_tpu_torch.data.core import (
+        DeviceBatchIterator, make_train_loader)
     from contrad_tpu_torch.data.synthetic import synthetic_dataset
     from contrad_tpu_torch.models import get_architecture
-    from contrad_tpu_torch.parallel import data_shard
     from contrad_tpu_torch.training import ScheduledAdam
 
     img = (args.size, args.size, 3)
@@ -225,26 +307,43 @@ def run_recipe(args, device: torch.device,
     if sg2:
         kwargs.update(lbd_r1=args.lbd_r1, d_reg_every=args.d_reg_every)
     trainer = _trainer(args.trainer, G, D, g_tx, d_tx, kwargs)
-    loader = DeviceBatchIterator(dataset, args.batch * args.n_critic, seed=5,
-                                 device=device, with_labels=args.conditional,
-                                 shard=data_shard(), parts=args.n_critic)
-    meter, metrics = StepMeter(device), []
+    if args.feed_world > 1:
+        loader = ShardedFeed(dataset, args.batch, args.n_critic, seed=5,
+                             world=args.feed_world, device=device)
+    else:
+        limit = DeviceBatchIterator.MAX_BYTES
+        DeviceBatchIterator.MAX_BYTES = args.max_bytes or limit
+        try:
+            loader = make_train_loader(dataset, args.batch, args.n_critic,
+                                       seed=5, device=device,
+                                       with_labels=args.conditional)
+        finally:
+            DeviceBatchIterator.MAX_BYTES = limit
+    meter, metrics, data = StepMeter(device), [], DataAudit(loader, dataset)
     for step in range(1, args.steps + 1):
-        idx, labels = loader.next_indices()
-        images = loader.materialize(idx)
+        if loader.supports_indexed:
+            idx, labels = loader.next_indices()
+            images = loader.materialize(idx)
+        else:
+            images, labels = next(loader)
+            idx = None
+        data.check(idx, images)
         kw: Dict[str, Any] = {}
         if sg2:
             kw.update(do_r1=step % args.d_reg_every == 0,
                       ema_decay=0.99 if step > args.ema_start_step else 0.0)
         if args.conditional:
-            kw["labels"] = torch.from_numpy(labels).to(device)
+            kw["labels"] = torch.as_tensor(labels, device=device)
         around = step_context(step) if step_context else contextlib.nullcontext()
         with around, meter:
             m = trainer.train_step(images, **kw)
         metrics.append({k: float(v) for k, v in m.items()})
         print(f"step {step}: {meter.rows[-1]['ms']:.1f} ms", flush=True)
+    if hasattr(loader, "close"):
+        loader.close()
     return {"metrics": metrics, "g_grads": g_seen, "d_grads": d_seen,
-            "state": flat_state(trainer.state_dict()), "steps": meter.rows}
+            "state": flat_state(trainer.state_dict()), "steps": meter.rows,
+            "data": data.record}
 
 
 def probe_collectives(device: torch.device) -> Dict[str, str]:
@@ -304,6 +403,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="sg2: the EMA decay is 0.99 after this step, else 0")
     p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     p.add_argument("--data_rows", type=int, default=64)
+    p.add_argument("--max_bytes", type=int, default=0,
+                   help="DeviceBatchIterator.MAX_BYTES for the choice of "
+                        "make_train_loader (0: the default): below the "
+                        "set's bytes a world shards it, or streams it from "
+                        "the host")
+    p.add_argument("--feed_world", type=int, default=0,
+                   help="world 1 only: train on the global batches of a "
+                        "sharded world of this many ranks")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--time_collectives", action="store_true",
                    help="synchronise around each collective to time it")

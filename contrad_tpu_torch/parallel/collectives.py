@@ -133,6 +133,29 @@ def global_var_mean(x: torch.Tensor, dims: Sequence[int]):
     return all_reduce_sum(sq) / world, mean
 
 
+def ring_shift_(t: torch.Tensor) -> torch.Tensor:
+    """Shift ``t`` one rank round the ring, in place: each rank sends its
+    ``t`` to rank + 1 and takes rank - 1's (JAX's ``lax.ppermute`` over the
+    ring, ``contrad_tpu/data/core.py:217-223``). The result is copied back
+    into ``t``'s own storage, so that a CUDA graph that reads ``t`` reads
+    the shifted rows. NCCL moves it card to card; gloo's point-to-point
+    calls take host memory, so under gloo a CUDA tensor goes through a host
+    copy. Not differentiable. ``t`` itself, untouched, in a world of one or
+    outside a world."""
+    rank, world = data_shard()
+    if world == 1:
+        return t
+    send = t.contiguous()
+    if backend() == "gloo" and t.is_cuda:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, (rank + 1) % world),
+           dist.P2POp(dist.irecv, recv, (rank - 1) % world)]
+    _issue(send, lambda: [w.wait() for w in dist.batch_isend_irecv(ops)])
+    t.copy_(recv)
+    return t
+
+
 def all_reduce_grads(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The world's sum of each gradient (``grads`` as ``training/step.py::
     _grads`` returns them, before the optimiser's ``step``), reduced in

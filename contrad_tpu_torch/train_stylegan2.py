@@ -18,7 +18,8 @@ to the first critic sub-step, with the config's ``lbd`` and ``lbd2``. It
 runs on the card; ``--device cpu`` runs it on the CPU. ``--dtype``,
 ``--opt_moments``, ``--opt_nu`` and ``--opt_grads`` are ``train_gan``'s
 (the production configuration: all four ``bf16``). The port has no packed
-layouts, so it takes no ``--no_packed_aug``. ``--steps_per_dispatch`` and
+layouts: ``--no_packed_aug``, the JAX CLI's switch to the unpacked path, is
+accepted and changes nothing (the log says so). ``--steps_per_dispatch`` and
 ``--trace_steps`` are ``train_gan``'s; in a block of K steps the lazy R1 and
 the EMA gate are per-step vectors, and each step replays the CUDA graph of
 its kind (plain, or with R1). ``--multihost`` is ``train_gan``'s; the
@@ -60,6 +61,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ema_start_k", default=None, type=int)
     p.add_argument("--halflife_lr", default=0, type=int,
                    help="LR half-life in images; 0 disables decay")
+    p.add_argument("--no_packed_aug", action="store_true",
+                   help="the JAX CLI's switch to the unpacked train path, "
+                        "which is the port's only path: accepted, changes "
+                        "nothing")
     p.add_argument("--print_every", default=50, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--override", nargs="*", default=[])
@@ -164,6 +169,9 @@ def main(argv: Optional[Sequence[str]] = None) -> History:
     meta = dict(architecture=P.architecture, n_classes=trainer.n_classes)
     run.log_start(logger, P, trainer, opt, first)
     logger.log(f"Use G moving average: {accum}")
+    if P.no_packed_aug:
+        logger.log("--no_packed_aug: the port trains on unpacked NHWC "
+                   "tensors only; the flag changes nothing")
 
     history = run.train(P, opt, trainer, loader, logger, evaluation, meta,
                         first, lambda steps: step_args(P, opt.batch_size,

@@ -89,8 +89,9 @@ class BlockRunner:
     """Runs the blocks of :class:`~contrad_tpu_torch.training.dispatch.
     BlockDispatcher` on ``trainer`` (a ``GANTrainer`` or
     ``StyleGAN2Trainer``) with images from ``loader`` (its ``images`` on the
-    device and ``materialize``). ``graphs`` turns on the CUDA graphs of
-    blocks of more than one step, on the card only."""
+    device and ``materialize``), or with batches a host-fed loader put on
+    the device. ``graphs`` turns on the CUDA graphs of blocks of more than
+    one step of index vectors, on the card only."""
 
     def __init__(self, trainer, loader, graphs: bool = True):
         self.trainer, self.loader = trainer, loader
@@ -107,25 +108,31 @@ class BlockRunner:
 
     # ------------------------------------------------------------- blocks
 
-    def run(self, idx_block: Sequence[np.ndarray],
+    def run(self, idx_block: Optional[Sequence[np.ndarray]],
             labels_block: Optional[Sequence[np.ndarray]] = None,
             ema_decay: Optional[Sequence[float]] = None,
-            do_r1: Optional[Sequence[bool]] = None) -> Metrics:
+            do_r1: Optional[Sequence[bool]] = None,
+            batches: Optional[Sequence[torch.Tensor]] = None) -> Metrics:
         """The block's steps, one index vector (and label vector, for a
         conditional D) per step, with each step's EMA decay and lazy-R1
         flag (0 and False where None); returns the last step's metrics,
-        still on the device."""
-        k = len(idx_block)
+        still on the device. ``batches``, where given in place of the index
+        vectors (``idx_block`` None), are the steps' images already on the
+        device (a host-fed loader's ``"batch"`` block), run eagerly."""
+        if (idx_block is None) == (batches is None):
+            raise ValueError("a block takes index vectors or batches")
+        k = len(idx_block if batches is None else batches)
         ema = [0.0] * k if ema_decay is None else [float(e) for e in ema_decay]
         r1 = [False] * k if do_r1 is None else [bool(r) for r in do_r1]
-        if self.graphs and k > 1:
+        if self.graphs and k > 1 and batches is None:
             return self._replay(idx_block, labels_block, ema, r1)
         for i in range(k):
             labels = (None if labels_block is None else torch.as_tensor(
                 labels_block[i], dtype=torch.int64, device=self.device))
+            images = (self.loader.materialize(idx_block[i]) if batches is None
+                      else batches[i])
             metrics = self.trainer.train_step(
-                self.loader.materialize(idx_block[i]), ema_decay=ema[i],
-                **self._step_kwargs(r1[i], labels))
+                images, ema_decay=ema[i], **self._step_kwargs(r1[i], labels))
         return metrics
 
     def take_setup_seconds(self) -> float:

@@ -61,7 +61,9 @@ class History(list):
     (``evals``: step, seconds, and the FID score, the best so far, whether
     it is the best and the seconds of the FID trials where FID ran) and its
     multi-step dispatch (``dispatch``: K, and the graph runner's ``stats``:
-    warm-up steps, capture seconds, launches and replays per step kind)."""
+    warm-up steps, capture seconds, launches and replays per step kind) and
+    its data path (``data``: the loader's ``path`` and, host-fed, its
+    prefetch ``stats``)."""
 
     def __init__(self, logdir: str):
         super().__init__()
@@ -69,6 +71,7 @@ class History(list):
         self.saves: List[Dict[str, Any]] = []
         self.evals: List[Dict[str, Any]] = []
         self.dispatch: Dict[str, Any] = {}
+        self.data: Dict[str, Any] = {}
 
 
 def add_run_args(p) -> None:
@@ -438,9 +441,12 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
     dispatcher = BlockDispatcher(loader, k_dispatch, opt.max_steps)
     if k_dispatch > 1:
         logger.log(f"Multi-step dispatch: {k_dispatch} steps/program")
+    path = getattr(loader, "path", type(loader).__name__)
+    logger.log(f"Data path: {path} ({type(loader).__name__})")
     runner = BlockRunner(trainer, loader)
     history = History(logger.logdir)
     history.dispatch = dict(k=k_dispatch, stats=runner.stats)
+    history.data = dict(path=path, stats=getattr(loader, "stats", {}))
     writer = data_shard()[0] == 0
     trace = (start_trace(logger.logdir, trainer.device)
              if P.trace_steps > 0 and writer else None)
@@ -448,13 +454,16 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
     t0, steps, step = time.perf_counter(), 0, first
     while step <= opt.max_steps:
         blk = dispatcher.next_block(step)
+        batches = None
         if blk.kind == "block":
             idx, labels = blk.idx_block, blk.labels_block
+        elif blk.kind == "batch":  # a host-fed batch, already on the device
+            idx, labels, batches = None, [blk.labels], [blk.materialize()]
         else:
             idx, labels = [blk.idx], [blk.labels]
         args = step_args(np.arange(step, step + blk.k)) if step_args else {}
         metrics = runner.run(idx, labels if trainer.conditional else None,
-                             **args)
+                             batches=batches, **args)
         t0 += runner.take_setup_seconds()
         step += blk.k - 1  # `step` is now the block's LAST step
         steps += blk.k
@@ -484,6 +493,8 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
         sync()
         trace.stop()
         logger.log(f"Profiler trace written to {logger.logdir}/profile")
+    if hasattr(loader, "close"):  # a host-fed loader's worker thread
+        loader.close()
     if trainer.device.type == "cuda":
         logger.log(f"peak device memory: "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

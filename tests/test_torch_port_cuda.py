@@ -441,3 +441,37 @@ def test_an_nccl_world_of_one_replays_bitwise_as_the_worldless_step(
     replayed = sum(captured[k]["calls"] * n
                    for k, n in runner.stats["replays"].items())
     assert collectives.counts["calls"] - before["calls"] >= replayed
+
+
+def test_prefetch_copies_pinned_batches_to_the_card(cuda):
+    """The host-fed stream on the card (``data/core.py::PrefetchIterator``):
+    its batches, copied from pinned buffers on a side stream, are the host
+    stream's, bitwise, once the consuming stream has waited for them; the
+    copies are timed as their buffers come round; a resumed stream goes on
+    at the consumer's position."""
+    import numpy as np
+
+    from contrad_tpu_torch.data import (
+        ArrayDataset, BatchIterator, PrefetchIterator)
+
+    rng = np.random.default_rng(0)
+    data = ArrayDataset(rng.integers(0, 256, size=(40, 64, 64, 3),
+                                     dtype=np.uint8),
+                        rng.integers(0, 10, size=40), n_classes=10)
+    it = PrefetchIterator(BatchIterator(data, 8, seed=1), device=cuda)
+    ref = BatchIterator(data, 8, seed=1)
+    for _ in range(12):  # 5 batches an epoch: across two boundaries
+        images, labels = next(it)
+        assert images.device.type == "cuda" and labels.dtype == torch.int64
+        want_images, want_labels = next(ref)
+        assert torch.equal(images.cpu(), torch.from_numpy(want_images))
+        assert torch.equal(labels.cpu(), torch.from_numpy(want_labels))
+    assert it.stats["copies_timed"] >= 12 - 2 * (it.depth + 1)
+    assert it.stats["copy_ms"] > 0
+    state = it.state_dict()
+    it.close()
+    resumed = PrefetchIterator(BatchIterator(data, 8, seed=1), device=cuda)
+    resumed.load_state_dict(state)
+    assert torch.equal(next(resumed)[0].cpu(),
+                       torch.from_numpy(next(ref)[0]))
+    resumed.close()
