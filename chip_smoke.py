@@ -165,13 +165,47 @@ result line:
    bitwise, with MB/s of each and of the pinned host-to-card copy; (c) the
    sharded path as a gloo world of two on the one card
    (``parallel/_mh_worker.py --max_bytes``: one chunk a rank, rotated round
-   the ring at each epoch boundary): the 512x512 recipe on 64 rows (shards
-   of 32, 8 rows a rank a step: 4 steps an epoch) for 6 steps and the
+   the ring at each epoch boundary): the 512x512 recipe on 32 rows (shards
+   of 16, 8 rows a rank a step: 2 steps an epoch) for 3 steps and the
    32x32 StyleGAN2 recipe on 512 rows for 10, each crossing one rotation:
    every batch bitwise the dataset rows the stream names, each rank's
    shard bitwise its chunk (its neighbour's after the rotation) in storage
    that never moves, and the world's steps held to world 1 fed the same
-   global batches (``--feed_world 2``) under phase 12b's rule.
+   global batches (``--feed_world 2``) under phase 12b's rule;
+14. the packed layout (``ops/packed.py``, the JAX package's space-to-depth
+   form of the 512x512 model's shallow levels): each layer of those levels
+   at the 512x512 recipe's batches (D at 48 rows in the D phase and 16 in
+   the G phase, G at 16) as the port runs it and packed (D's
+   ``block_512.conv1``, ``conv2`` and ``skip``, ``block_256.conv1`` and
+   the FromRGB stem; G's top 3x3 conv, its upsampling conv into 512x512
+   and ToRGB with the skip upsample), the blurred downsampling convs also
+   blur-folded as JAX runs them unpacked, and the packed path's boundary
+   copies beside the folded 2x2 stride-2 stem: first every variant's
+   output and input gradients against the port's on the card in float32
+   (TF32 off), and with its weight gradient in float64 (the blur's plain
+   version), each within 1e-4 + 1e-4 * max; then forward, input
+   gradient and weight gradient timed as CUDA-graph replays (best of 3),
+   float32 with TF32 convs and bfloat16, each beside its byte bound at
+   3.35 TB/s and its FLOPs; the rows weighted by the times a 512x512
+   plain step runs each, and the verdict: ``port`` where the packed rows
+   with the copies save more than 2 % of phase 11's 512x512 plain graph
+   step in either dtype, else ``close``;
+15. the model variants that no registry architecture builds
+   (``ResidualDiscriminator``, ``SkipDiscriminator``, G with
+   ``input_is_latent``, ``return_latents`` and ``mean_latent``, the
+   SNDCGAN D with its linear head (``mlp_linear=False``) with and without
+   labels, ``NullDiscriminator``), at StyleGAN2 32x32's and the flagship's
+   widths, on the card against the CPU (TF32 off, within 1e-4 + 1e-4 *
+   max, the card taking the CPU's leaky-ReLU branches as in phase 7),
+   spectral norm's ``u`` too, the blur kernel launching once forward and
+   once in the adjoint per blur of each StyleGAN2 D and once per
+   upsampling blur of each G forward;
+16. the quality runbook's dry run (``contrad_tpu_torch/tools/
+   quality_run.sh`` with ``DATASET=synthetic_32 EMBED=moments``, the
+   flagship at batch 512 for 20 steps evaluating FID@1000 at 10 and 20):
+   exit 0 and a finite best FID from its trajectory; then
+   ``precalc_stats --images`` on 256 PNGs that the phase writes, with the
+   InceptionV3 on phase 9's random weights, on the card against the CPU.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -660,16 +694,46 @@ def expect_launches(r, want, what: str) -> None:
                              f"{what} took the scalar path")
 
 
-def share_datasets() -> None:
+# a process that draws a dataset (argv[2]) while phases 3-6 run and pickles
+# it to argv[3]: the same call, so the same bits, as drawing it in this one
+DRAW_DATASET = (
+    "import os, pickle, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from contrad_tpu_torch.data import get_dataset\n"
+    "with open(sys.argv[3] + '.tmp', 'wb') as f:\n"
+    "    pickle.dump(get_dataset(sys.argv[2]), f, protocol=5)\n"
+    "os.replace(sys.argv[3] + '.tmp', sys.argv[3])\n")
+
+
+def share_datasets(drawing: dict) -> None:
     """Make each dataset once for the whole run: phase 7's steps and its
     profile read the same ``synthetic_512`` (2,560 images of 512x512, which
-    numpy takes about a minute to draw). The CLIs look ``get_dataset`` up in
-    ``contrad_tpu_torch.data`` when they build."""
-    import functools
+    numpy takes about a minute to draw). ``drawing`` maps a dataset to the
+    process drawing it (``DRAW_DATASET``, started at the run's start) and
+    its file, read at the dataset's first use. The CLIs look
+    ``get_dataset`` up in ``contrad_tpu_torch.data`` when they build."""
+    import pickle
 
     from contrad_tpu_torch import data
 
-    data.get_dataset = functools.lru_cache(maxsize=None)(data.get_dataset)
+    plain, made = data.get_dataset, {}
+
+    def get_dataset(dataset, data_path=None):
+        key = (dataset, data_path)
+        if key not in made:
+            if data_path is None and dataset in drawing:
+                proc, path = drawing.pop(dataset)
+                if proc.wait() != 0:
+                    raise RuntimeError(f"drawing {dataset} failed "
+                                       f"({proc.returncode})")
+                with open(path, "rb") as f:
+                    made[key] = pickle.load(f)
+                os.remove(path)
+            else:
+                made[key] = plain(dataset, data_path)
+        return made[key]
+
+    data.get_dataset = get_dataset
 
 
 def profile_rows(step, steps: int):
@@ -2742,8 +2806,8 @@ SHARD_RECIPES = (
     ("stylegan2_512", ["--trainer", "sg2", "--arch", "stylegan2_512",
                        "--size", "512", "--batch", str(BATCH_512), "--aug",
                        "simclr_hq", "--lbd_r1", "0.5", "--d_reg_every", "2",
-                       "--data_rows", "64", "--steps", "6",
-                       "--max_bytes", str(40 * 2**20)]),  # of 50.3 MB
+                       "--data_rows", "32", "--steps", "3",
+                       "--max_bytes", str(20 * 2**20)]),  # of 25.2 MB
     ("stylegan2_32", ["--trainer", "sg2", "--arch", "stylegan2", "--size",
                       "32", "--batch", str(BATCH), "--aug", "simclr",
                       "--lbd_r1", "0.1", "--d_reg_every", "1",
@@ -2960,6 +3024,694 @@ def data_phase(per_step) -> dict:
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------- the packed layout
+
+# Phase 14: the peaks a row's bound divides its FLOPs by (float32 convs run
+# on TF32 tensor cores in the train steps; dense rates of the card's data
+# sheet at 700 W), the share of the 512x512 plain graph step that the
+# packed path must save to be ported, and the timing's best-of trials.
+PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+VERDICT_SHARE = 0.02
+PACKED_TRIALS, PACKED_ITERS = 3, 10
+
+
+def nhwc_conv(x, w, stride: int = 1, padding: int = 0):
+    import torch.nn.functional as F
+
+    return F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                    padding=padding).permute(0, 2, 3, 1)
+
+
+def conv_ops(n, ho, co, ci, k) -> float:
+    """FLOPs (2 x multiply-adds) of a conv producing (n, ho, ho, co) from
+    ``ci`` channels with a k x k kernel."""
+    return 2.0 * n * ho * ho * co * ci * k * k
+
+
+def packed_rows():
+    """Phase 14's rows, each one layer of the 512x512 recipe's shallow
+    levels at one batch: as the port runs it (variant ``port``), its packed
+    equivalent from ``ops/packed.py`` (``packed``) and, for the blurred
+    downsampling convs, JAX's blur-folded unpacked conv (``folded``); then
+    the packed path's boundary copies and the folded stem of
+    ``tools/fold_micro.py``. ``counts``: the times a 512x512 plain step
+    runs the row, by pass (D at 3N = 48 rows in the D phase, forward, input
+    and weight gradient, the stem taking no input gradient there; D at N =
+    16 in the G phase, forward and input gradient; G at N, all three;
+    none for the informational stem row). A variant computes
+    ``fn(*inputs, w)`` on NHWC inputs packed by ``f_in`` (one factor an
+    input) and an OIHW weight, its output packed by ``f_out``; ``ops`` is a
+    forward's FLOPs (each gradient takes its conv's FLOPs again)."""
+    from contrad_tpu_torch.ops import packed as pk
+    from contrad_tpu_torch.ops.upfirdn2d import (
+        blur2d, compose_blur_kernel, make_kernel, upsample2d)
+
+    blur = make_kernel([1, 3, 3, 1])
+    n3, n1 = 3 * BATCH_512, BATCH_512
+    rows = []
+
+    def row(name, n, counts, shapes, w_shape, variants):
+        for v in variants.values():
+            v.setdefault("f_in", [1] * len(shapes))
+            v.setdefault("f_out", 1)
+            v.setdefault("blur", False)
+        rows.append(dict(name=name, n=n, counts=counts, shapes=shapes,
+                         w_shape=w_shape, variants=variants))
+
+    def plain(stride, pad, k, co, ci, h):
+        return dict(fn=lambda x, w: nhwc_conv(x, w, stride, pad),
+                    ops=conv_ops(1, h // stride, co, ci, k))
+
+    def packed(pad, k, co, ci, h):
+        kk = pk._axis_geometry(k, 2, 2, 1, pad)[1]
+        return dict(fn=lambda xp, w: pk.packed_conv(xp, w, 2, 2, 1,
+                                                    (pad, pad)),
+                    f_in=[2], f_out=2, ops=conv_ops(1, h // 2, 4 * co,
+                                                    4 * ci, kk))
+
+    def blurred(k, co, ci, h, bpad):
+        """The port's downsampling ConvLayer: the blur kernel, then the
+        stride-2 conv."""
+        hb = h + sum(bpad) - 3
+        return dict(fn=lambda x, w: nhwc_conv(blur2d(x, blur, bpad), w, 2),
+                    blur=True, ops=conv_ops(1, h // 2, co, ci, k)
+                    + 16.0 * hb * hb * ci)
+
+    def folded(pad, k, co, ci, h):
+        return dict(fn=lambda x, w: nhwc_conv(
+            x, compose_blur_kernel(blur, w), 2, pad),
+            ops=conv_ops(1, h // 2, co, ci, k + 3))
+
+    def packed_folded(pad, k, co, ci, h):
+        kk = pk._axis_geometry(k + 3, 2, 2, 2, pad)[1]
+        return dict(fn=lambda xp, w: pk.packed_conv(
+            xp, compose_blur_kernel(blur, w), 2, 2, 2, (pad, pad)),
+            f_in=[2], f_out=2, ops=conv_ops(1, h // 4, 4 * co, 4 * ci, kk))
+
+    for n in (n3, n1):
+        c = {"fwd": 1, "dx": 1, "dw": 1} if n == n3 else {"fwd": 1, "dx": 1}
+        row(f"D block_512.conv1 3x3 32->32 @512", n, c, [(n, 512, 512, 32)],
+            (32, 32, 3, 3), {"port": plain(1, 1, 3, 32, 32, 512),
+                             "packed": packed(1, 3, 32, 32, 512)})
+        row(f"D block_512.conv2 blur+3x3/2 32->64", n, c,
+            [(n, 512, 512, 32)], (64, 32, 3, 3),
+            {"port": blurred(3, 64, 32, 512, (2, 2)),
+             "folded": folded(2, 3, 64, 32, 512),
+             "packed": packed_folded(2, 3, 64, 32, 512)})
+        row(f"D block_512.skip blur+1x1/2 32->64", n, c,
+            [(n, 512, 512, 32)], (64, 32, 1, 1),
+            {"port": blurred(1, 64, 32, 512, (1, 1)),
+             "folded": folded(1, 1, 64, 32, 512),
+             "packed": packed_folded(1, 1, 64, 32, 512)})
+        row(f"D block_256.conv1 3x3 64->64 @256", n, c, [(n, 256, 256, 64)],
+            (64, 64, 3, 3), {"port": plain(1, 1, 3, 64, 64, 256),
+                             "packed": packed(1, 3, 64, 64, 256)})
+        row(f"D from_rgb 1x1 3->32 @512", n, dict(c, dx=0) if n == n3 else c,
+            [(n, 512, 512, 3)], (32, 3, 1, 1),
+            {"port": plain(1, 0, 1, 32, 3, 512),
+             "packed": packed(0, 1, 32, 3, 512)})
+    g = {"fwd": 1, "dx": 1, "dw": 1}
+    row("G top conv 3x3 32->32 @512", n1, g, [(n1, 512, 512, 32)],
+        (32, 32, 3, 3), {"port": plain(1, 1, 3, 32, 32, 512),
+                         "packed": packed(1, 3, 32, 32, 512)})
+
+    def g_up(x, w):
+        """The port's upsampling ModulatedConv: the transposed conv of the
+        flipped kernel, then the blur kernel (x4 taps, pads (1, 1))."""
+        import torch.nn.functional as F
+
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                               w.transpose(0, 1).flip(2, 3), stride=2)
+        return blur2d(y.permute(0, 2, 3, 1), blur, (1, 1), upsample_factor=2)
+
+    row("G upsampling conv 3x3 64->32 into 512", n1, g, [(n1, 256, 256, 64)],
+        (32, 64, 3, 3),
+        {"port": dict(fn=g_up, blur=True, ops=conv_ops(1, 256, 64, 32, 3)
+                      + 16.0 * 512 * 512 * 32),
+         "packed": dict(fn=lambda x, w: pk.packed_conv(
+             x, compose_blur_kernel(blur * 4, w), 1, 2, 1, (3, 3),
+             lhs_dilation=2), f_out=2, ops=conv_ops(1, 256, 128, 64, 3))})
+    row("G ToRGB 1x1 32->3 + skip upsample @512", n1, g,
+        [(n1, 512, 512, 32), (n1, 256, 256, 3)], (3, 32, 1, 1),
+        {"port": dict(fn=lambda x, skip, w: nhwc_conv(x, w)
+                      + upsample2d(skip, blur),
+                      ops=conv_ops(1, 512, 3, 32, 1) + 16.0 * 512 * 512 * 3),
+         "packed": dict(fn=lambda xp, skip, w: pk.packed_conv(
+             xp, w, 2, 2, 1, (0, 0)) + pk.upsample2d_packed(skip, blur),
+             f_in=[2, 1], f_out=2,
+             ops=conv_ops(1, 256, 12, 128, 1)
+             + 2.0 * 512 * 256 * 256 * 3 + 2.0 * 512 * 512 * 256 * 3)})
+    # the packed path's boundary copies (tools/fold_micro.py): D's 3N
+    # images and the G phase's N fakes packed for D, G's packed image
+    # unpacked (the copies' gradients are the inverse copies)
+    for name, n, counts, shape, fn in (
+            ("copy space_to_depth of D's images", n3, {"fwd": 1},
+             (n3, 512, 512, 3), lambda x, w: pk.space_to_depth(x, 2)),
+            ("copy space_to_depth of the G phase's fakes", n1,
+             {"fwd": 1, "dx": 1}, (n1, 512, 512, 3),
+             lambda x, w: pk.space_to_depth(x, 2)),
+            ("copy depth_to_space of G's image", n1, {"fwd": 1, "dx": 1},
+             (n1, 256, 256, 12), lambda x, w: pk.depth_to_space(x, 2))):
+        row(name, n, counts, [shape], None, {"packed": dict(fn=fn, ops=0.0)})
+    # the stem as JAX runs it (space_to_depth, then the packed 1x1) against
+    # the folded 2x2 stride-2 conv that reads the image in place
+    row("D stem: space_to_depth + packed 1x1, or folded 2x2/2", n3, {},
+        [(n3, 512, 512, 3)], (32, 3, 1, 1),
+        {"packed": dict(fn=lambda x, w: pk.packed_conv(
+            pk.space_to_depth(x, 2), w, 2, 2, 1, (0, 0)), f_out=2,
+            ops=conv_ops(1, 256, 128, 12, 1)),
+         "folded": dict(fn=lambda x, w: pk.packed_conv(x, w, 1, 2, 1, (0, 0)),
+                        f_out=2, ops=conv_ops(1, 256, 128, 3, 2))})
+    return rows
+
+
+def _row_tensors(r, dtype, seed: int = 0):
+    """Inputs (port layout), weight and output gradient of a row: inputs
+    N(0, 1) (images U(0, 1)), the weight N(0, 1/fan_in), on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [(torch.rand if s[-1] == 3 else torch.randn)(
+        s, generator=gen, device="cuda").to(dtype) for s in r["shapes"]]
+    w = None
+    if r["w_shape"] is not None:
+        w = (torch.randn(r["w_shape"], generator=gen, device="cuda")
+             / math.sqrt(math.prod(r["w_shape"][1:]))).to(dtype)
+    return xs, w, gen
+
+
+def _variant_inputs(v, xs):
+    from contrad_tpu_torch.ops.packed import space_to_depth
+
+    return [space_to_depth(x, f).contiguous() for x, f in zip(xs, v["f_in"])]
+
+
+def _fwd_and_grads(v, xs, w, gy):
+    """Output, input gradients and weight gradient of a variant through
+    autograd, back in the port's layout."""
+    import torch
+
+    from contrad_tpu_torch.ops.packed import depth_to_space, space_to_depth
+
+    xr = [x.detach().requires_grad_(True) for x in _variant_inputs(v, xs)]
+    wr = w.detach().requires_grad_(True)
+    y = v["fn"](*xr, wr)
+    grads = torch.autograd.grad(y, xr + [wr],
+                                space_to_depth(gy, v["f_out"]).contiguous())
+    return ([depth_to_space(y.detach(), v["f_out"])]
+            + [depth_to_space(g, f) for g, f in zip(grads[:-1], v["f_in"])]
+            + [grads[-1]])
+
+
+@contextlib.contextmanager
+def plain_blur():
+    """The models' blur through its plain version on every device, so that
+    a float64 check can run the port's blurred layers on the card (the
+    kernel takes float32 and bfloat16; phase 3 holds it to this version)."""
+    import types
+
+    from contrad_tpu_torch.ops import blur, upfirdn2d
+
+    upfirdn2d._blur = types.SimpleNamespace(blur2d=blur.blur2d_plain)
+    try:
+        yield
+    finally:
+        upfirdn2d._blur = blur
+
+
+def check_packed_rows(rows) -> dict:
+    """Each row's variants against its first (the port's, or JAX's stem)
+    on the card, each tensor within ``MODEL_TOL`` of the reference's
+    largest element: in float32 with TF32 off the output and the input
+    gradients (the blur kernel launching once forward and once in the
+    adjoint in each blurred variant); in float64, with the blur's plain
+    version, those and the weight gradient, a sum over up to 12.6 M
+    pixels whose float32 rounding the order of the sum sets (1.2e-4 of its
+    largest element between the two layouts at 48 rows)."""
+    import torch
+
+    from contrad_tpu_torch.ops.blur import blur2d as blur_op
+    from contrad_tpu_torch.ops.packed import depth_to_space
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for r in rows:
+            labels = list(r["variants"])
+            if r["w_shape"] is None or len(labels) < 2:
+                continue
+            xs, w, gen = _row_tensors(r, dtype)
+            ref_v = r["variants"][labels[0]]
+            with torch.no_grad(), (plain_blur() if dtype == torch.float64
+                                   else contextlib.nullcontext()):
+                y = depth_to_space(ref_v["fn"](*_variant_inputs(ref_v, xs),
+                                               w), ref_v["f_out"])
+            gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+            del y
+            key = f"{r['name']}, n={r['n']}"
+            results, checks = {}, out.setdefault(key, {})
+            for label in labels:
+                before = blur_op.launches
+                with (plain_blur() if dtype == torch.float64
+                      else contextlib.nullcontext()):
+                    results[label] = _fwd_and_grads(r["variants"][label],
+                                                     xs, w, gy)
+                launches = blur_op.launches - before
+                if dtype == torch.float32:
+                    checks[label] = {"blur_launches": launches}
+                    if r["variants"][label]["blur"] and launches != 2:
+                        raise AssertionError(
+                            f"{key} {label}: {launches} blur launches, not "
+                            f"1 forward + 1 adjoint")
+            what = ["output"] + [f"input {i} grad" for i in range(len(xs))]
+            if dtype == torch.float64:
+                what.append("weight grad")
+            for label in labels[1:]:
+                for name, a, b in zip(what, results[label],
+                                      results[labels[0]]):
+                    if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                        raise AssertionError(f"{key} {label} {name}: shape "
+                                             f"{tuple(a.shape)} or values")
+                    err = float((a - b).abs().max())
+                    limit = MODEL_TOL[0] + MODEL_TOL[1] * float(b.abs().max())
+                    checks[label][f"{name} {str(dtype)[6:]}"] = err / limit
+                    if not err <= limit:
+                        raise AssertionError(
+                            f"{key}: {label} against {labels[0]}, {name} "
+                            f"({dtype}): max|diff| {err:.3e} > {limit:.3e}")
+            worst = max(v for lab in labels[1:] for k, v in
+                        checks[lab].items() if k.endswith(str(dtype)[6:]))
+            log(f"  check {str(dtype)[6:]} {key:48s} {'/'.join(labels)}: "
+                f"worst {worst:.3f} of the tolerance")
+            del xs, w, gy, results
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_packed_row(r, dtype) -> dict:
+    """ms of each variant's forward, input gradient and weight gradient
+    (those the row's counts run, the forward always), best of
+    ``PACKED_TRIALS``: the forward, the forward with ``autograd.grad`` of
+    the inputs and with that of the weight, each as CUDA-graph replays of
+    ``PACKED_ITERS`` calls (``cuda_ms``); a gradient's time is the
+    difference. With the bytes each pass must move (inputs read and
+    outputs written once), its FLOPs and its bound."""
+    import torch
+
+    xs, w, gen = _row_tensors(r, dtype)
+    size = torch.finfo(dtype).bits // 8
+    passes = ["fwd"] + [p for p in ("dx", "dw") if r["counts"].get(p)]
+    if not r["counts"]:
+        passes = ["fwd", "dx"]  # fold_micro's forward and forward+backward
+    out = {}
+    for label, v in r["variants"].items():
+        vin = _variant_inputs(v, xs)
+        with torch.no_grad():
+            y = v["fn"](*vin, w)
+        gy = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
+        xr = [x.detach().requires_grad_(True) for x in vin]
+        wr = None if w is None else w.detach().requires_grad_(True)
+
+        def fwd(_):
+            with torch.no_grad():
+                v["fn"](*vin, w)
+
+        def fwd_dx(_):
+            torch.autograd.grad(v["fn"](*xr, w), xr, gy)
+
+        def fwd_dw(_):
+            torch.autograd.grad(v["fn"](*vin, wr), wr, gy)
+
+        calls = {"fwd": fwd, "dx": fwd_dx, "dw": fwd_dw}
+        t = {p: min(cuda_ms(calls[p], [None], PACKED_ITERS, graph=True)
+                    for _ in range(PACKED_TRIALS)) for p in passes}
+        x_bytes = sum(x.numel() for x in vin) * size
+        w_bytes = 0 if w is None else w.numel() * size
+        y_bytes = y.numel() * size
+        ops = v["ops"] * r["n"]
+        res = {"ms": {"fwd": t["fwd"]}, "bound_ms": {}, "bytes": {},
+               "gflop": {}}
+        for p in passes:
+            if p != "fwd":
+                res["ms"][p] = t[p] - t["fwd"]
+            moved = {"fwd": x_bytes + w_bytes + y_bytes,
+                     "dx": y_bytes + w_bytes + x_bytes,
+                     "dw": y_bytes + x_bytes + w_bytes}[p]
+            res["bytes"][p] = moved
+            res["gflop"][p] = ops / 1e9
+            res["bound_ms"][p] = 1e3 * max(moved / HBM_BYTES_PER_S,
+                                           ops / PEAK_FLOPS[str(dtype)[6:]])
+        out[label] = res
+        log(f"  {r['name']:42s} n={r['n']:<3d} {label:6s} "
+            + " ".join(f"{p} {res['ms'][p]:7.3f}" for p in passes)
+            + " ms; bound " + " ".join(f"{res['bound_ms'][p]:.3f}"
+                                       for p in passes)
+            + f" ms ({res['bytes']['fwd'] / 1e6:.0f} MB, "
+            f"{res['gflop']['fwd']:.1f} GFLOP a pass)")
+        del vin, y, gy, xr, wr
+    del xs, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def packed_phase(step_ms: dict) -> dict:
+    """Phase 14: the card's verdict on the packed layout. Checks each
+    packed row against the port's, then times every row in float32 (TF32
+    convs, as in the train steps) and bfloat16, and weighs the rows by the
+    times a 512x512 plain step runs them. ``step_ms``: the 512x512 plain
+    graph step of this run (phase 11), by dtype. The verdict is ``port``
+    where the packed rows with the boundary copies save more than
+    ``VERDICT_SHARE`` of that step in either dtype, else ``close``."""
+    import torch
+
+    t14 = time.perf_counter()
+    phase("[14] the packed layout (ops/packed.py) against the port's "
+          "unpacked layers at the 512x512 recipe's batches (D 48 and 16, G "
+          "16)")
+    rows = packed_rows()
+    torch.backends.cudnn.allow_tf32 = False
+    phase("  check: each packed and folded row against the port's, float32 "
+          "(TF32 off) and float64")
+    out = {"check": check_packed_rows(rows), "rows": {}, "totals": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        torch.backends.cudnn.allow_tf32 = True  # the train steps' setting
+        phase(f"  times, {name}: ms a pass (CUDA-graph replays, best of "
+              f"{PACKED_TRIALS}); bound at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+              f"and {PEAK_FLOPS[name] / 1e12:.0f} TFLOP/s")
+        totals = {"port": 0.0, "packed": 0.0, "folding": 0.0}
+        for r in rows:
+            t = time_packed_row(r, dtype)
+            out["rows"][f"{r['name']}, n={r['n']} {name}"] = t
+            step = {label: sum(c * res["ms"][p]
+                               for p, c in r["counts"].items() if c)
+                    for label, res in t.items()}
+            for label in ("port", "packed"):
+                totals[label] += step.get(label, 0.0)
+            if "folded" in step and "port" in step:
+                totals["folding"] += step["folded"] - step["port"]
+        threshold = VERDICT_SHARE * step_ms[name]
+        totals.update(saving=totals["port"] - totals["packed"],
+                      threshold=threshold, step_ms=step_ms[name])
+        out["totals"][name] = totals
+        log(f"  {name}: the rows a 512x512 plain step runs: unpacked (the "
+            f"port) {totals['port']:.3f} ms, packed with the boundary copies"
+            f" {totals['packed']:.3f} ms, saving {totals['saving']:+.3f} ms "
+            f"against {VERDICT_SHARE:.0%} of the {step_ms[name]:.2f} ms plain"
+            f" graph step ({threshold:.3f} ms); the blur folded into the "
+            f"downsampling convs, unpacked: {totals['folding']:+.3f} ms")
+    torch.backends.cudnn.allow_tf32 = False
+    out["verdict"] = ("port" if any(t["saving"] > t["threshold"]
+                                    for t in out["totals"].values())
+                      else "close")
+    log("  verdict: " + out["verdict"] + " (" + "; ".join(
+        f"{k}: packed saves {t['saving']:+.3f} ms of a {t['step_ms']:.2f} ms "
+        f"step, {t['saving'] / t['step_ms']:+.2%}"
+        for k, t in out["totals"].items()) + ")")
+    out["seconds"] = time.perf_counter() - t14
+    log(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------- the variants
+
+VARIANT_BATCH = 8  # phase 15: two minibatch-stddev groups of 4
+
+
+def _close_card(what: str, card, cpu, worst: dict) -> None:
+    """``card`` within ``MODEL_TOL`` of ``cpu``'s largest element."""
+    import torch
+
+    card, cpu = card.detach().cpu(), cpu.detach()
+    if card.shape != cpu.shape or not bool(torch.isfinite(card).all()):
+        raise AssertionError(f"{what}: shape {tuple(card.shape)} or values")
+    err = float((card - cpu).abs().max())
+    limit = MODEL_TOL[0] + MODEL_TOL[1] * float(cpu.abs().max())
+    worst[what] = err / limit
+    if not err <= limit:
+        raise AssertionError(f"{what}: card and CPU disagree: max|diff| "
+                             f"{err:.3e} > {limit:.3e}")
+
+
+def _near_zero_flips(branches, what: str) -> int:
+    """The leaky-ReLU elements on the other branch on the card, each of
+    whose pre-activations must lie within ``MODEL_TOL`` of 0 on both
+    devices (phase 7's rule); returns their count."""
+    import torch
+
+    far = [f for f in branches.flips
+           if bool(torch.isnan(f["cpu"]).any())
+           or float(f["card"].abs().max()) > f["limit"]]
+    if far:
+        raise AssertionError(f"{what}: branches differ away from 0 in leaky "
+                             f"ReLUs {[f['call'] for f in far]}")
+    return sum(len(f["index"]) for f in branches.flips)
+
+
+def _blurs(module) -> int:
+    from contrad_tpu_torch.models.stylegan2.layers import Blur
+
+    return sum(isinstance(m, Blur) for m in module.modules())
+
+
+def variants_phase() -> dict:
+    """Phase 15: the model variants that no registry architecture builds,
+    on the card against the same modules on the CPU (plain versions),
+    float32 with TF32 off, at StyleGAN2 32x32's registry widths (small32)
+    and the SNDCGAN flagship's: outputs, input gradients and spectral
+    norm's ``u``, each within ``MODEL_TOL`` of the CPU's largest element,
+    the card taking the CPU's leaky-ReLU branches (``LeakyBranches``); the
+    blur kernel launching once forward and once in the adjoint per
+    ``Blur`` of each StyleGAN2 D, once per upsampling blur of each G
+    forward."""
+    import torch
+
+    from contrad_tpu_torch.models import NullDiscriminator, get_architecture
+    from contrad_tpu_torch.models.sndcgan import DSndcgan
+    from contrad_tpu_torch.models.stylegan2 import (
+        ResidualDiscriminator, SkipDiscriminator)
+    from contrad_tpu_torch.ops.blur import blur2d
+    from contrad_tpu_torch.ops.spectral_norm import commit_u
+
+    t15 = time.perf_counter()
+    phase(f"[15] the model variants no registry architecture builds, card "
+          f"against CPU at StyleGAN2 32x32's widths (batch {VARIANT_BATCH})")
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    n = VARIANT_BATCH
+    x = torch.rand(n, 32, 32, 3, generator=gen)
+    out = {"launches": {}, "worst": {}, "other_branch": {}}
+
+    def card_vs_cpu(name, build, run, want_launches):
+        """``run(module, device)`` -> {what: tensor} on the CPU (branches
+        recorded) and the card (branches imposed), the blur's launches on
+        the card counted."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            cpu = build()
+        card = copy.deepcopy(cpu).cuda()
+        branches = LeakyBranches()
+        with branches.record():
+            want = run(cpu, "cpu")
+        before = blur2d.launches
+        with branches.impose():
+            got = run(card, "cuda")
+        torch.cuda.synchronize()
+        launches = blur2d.launches - before
+        worst = {}
+        for what in want:
+            _close_card(f"{name} {what}", got[what], want[what], worst)
+        flips = _near_zero_flips(branches, name)
+        out["launches"][name] = launches
+        out["worst"][name] = max(worst.values())
+        out["other_branch"][name] = flips
+        named = [k for k in want if not k.endswith(".u")]
+        n_u = len(want) - len(named)
+        log(f"  {name:36s} {', '.join(named)}{f' and {n_u} u' * bool(n_u)}:"
+            f" worst {max(worst.values()):.3f} of the tolerance; blur "
+            f"launches {launches}; {flips} of "
+            f"{sum(math.prod(c['shape']) for c in branches.calls)} leaky-ReLU"
+            f" elements on the other branch")
+        if launches != want_launches:
+            raise AssertionError(f"{name}: {launches} blur launches, not "
+                                 f"{want_launches}")
+
+    gy = torch.randn(n, 1, generator=gen)
+
+    def d_run(module, device):
+        xr = x.to(device).requires_grad_(True)
+        score = module(xr)
+        (gx,) = torch.autograd.grad((score * gy.to(device)).sum(), xr)
+        return {"score": score, "input grad": gx}
+
+    for cls in (ResidualDiscriminator, SkipDiscriminator):
+        blurs = _blurs(cls(32, small32=True))
+        card_vs_cpu(cls.__name__, lambda cls=cls: cls(32, small32=True),
+                    d_run, 2 * blurs)
+
+    # G: mean_latent from a card generator, the same draws mapped on the
+    # CPU; then per-layer and per-sample latents in, latents out
+    G, _ = get_architecture("stylegan2", (32, 32, 3), device="cpu", seed=1)
+    Gc = copy.deepcopy(G).cuda()
+    with torch.no_grad():
+        w_card = Gc.mean_latent(4096, torch.Generator("cuda").manual_seed(3))
+        z = Gc.sample_latent(4096, torch.Generator("cuda").manual_seed(3))
+        w_cpu = G.style_forward(z.cpu()).mean(dim=0, keepdim=True)
+    worst = {}
+    _close_card("G mean_latent", w_card, w_cpu, worst)
+    lat = w_cpu[:, None] + 0.5 * torch.randn(n, G.n_latent, G.style_dim,
+                                             generator=gen)
+    noise = G.draw_noise(n, gen, torch.device("cpu"))
+    mixing = G.draw_mixing(n, 0.9, gen, torch.device("cpu"))
+    blurs, launches = _blurs(G), 0
+    with torch.no_grad():
+        for what, args, kw in (
+                ("per-layer latents, mixing", (lat, noise, mixing),
+                 dict(train=True)),
+                ("mean latent, eval", (w_cpu.expand(n, -1), noise, None),
+                 dict(train=False))):
+            want = G(*args, input_is_latent=True, return_latents=True, **kw)
+            before = blur2d.launches
+            got = Gc(*_to(args, "cuda"), input_is_latent=True,
+                     return_latents=True, **kw)
+            launches += blur2d.launches - before
+            _close_card(f"G {what}: image", got[0], want[0], worst)
+            _close_card(f"G {what}: latents", got[1], want[1], worst)
+    out["launches"]["GStylegan2 input_is_latent"] = launches
+    out["worst"]["GStylegan2"] = max(worst.values())
+    log(f"  {'GStylegan2':36s} mean_latent, images and latents of 2 "
+        f"forwards: worst {max(worst.values()):.3f} of the tolerance; blur "
+        f"launches {launches}")
+    if launches != 2 * blurs:
+        raise AssertionError(f"G: {launches} blur launches, not {2 * blurs}")
+
+    # SNDCGAN with the linear head (mlp_linear False, JAX's default), at the
+    # flagship's widths, with and without labels; u after the pass
+    y = torch.randint(0, 10, (n,), generator=gen)
+    gp = torch.randn(n, 128, generator=gen)
+
+    def sn_run(labels):
+        def run(module, device):
+            xr = x.to(device).requires_grad_(True)
+            d, aux = module(xr, y.to(device) if labels else None)
+            (gx,) = torch.autograd.grad(
+                (d * gy.to(device)).sum()
+                + (aux["projection"] * gp.to(device)).sum(), xr)
+            commit_u(module)
+            return {"score": d, "projection": aux["projection"],
+                    "input grad": gx,
+                    **{k: v for k, v in module.state_dict().items()
+                       if k.endswith(".u")}}
+        return run
+
+    for labels in (False, True):
+        card_vs_cpu(f"DSndcgan(mlp_linear=False){' labels' * labels}",
+                    lambda: DSndcgan((32, 32, 3), d_hidden=512, n_classes=10),
+                    sn_run(labels), 0)
+    null = NullDiscriminator()
+    worst = {}
+    _close_card("NullDiscriminator", null(x.cuda()), null(x), worst)
+    out["worst"]["NullDiscriminator"] = worst["NullDiscriminator"]
+    out["seconds"] = time.perf_counter() - t15
+    log(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------- the runbook
+
+RUNBOOK = "contrad_tpu_torch/tools/quality_run.sh"
+RUNBOOK_ENV = {"DATASET": "synthetic_32", "EMBED": "moments", "STEPS": "20",
+               "EVAL_EVERY": "10", "FID_SIZE": "1000", "DEVICE": "cuda"}
+PRECALC_IMAGES = 256
+
+
+def runbook_phase() -> dict:
+    """Phase 16: the quality runbook's weights-free dry run on the card
+    (the flagship at batch 512 for 20 steps, FID@1000 of the ``moments``
+    embedder at steps 10 and 20; its statistics and runs under the run's
+    temporary directory): exit 0, a finite best FID from its trajectory,
+    the CSV's two rows; then ``precalc_stats --images`` on 256 PNGs the
+    phase writes (the synthetic reference split), with the InceptionV3 on
+    random weights from a numpy seed (phase 9's), on the card (TF32 off)
+    against the CPU: mu and sigma within ``MODEL_TOL``."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from contrad_tpu_torch.data import get_dataset_ref
+    from contrad_tpu_torch.tools import precalc_stats
+
+    t16 = time.perf_counter()
+    phase("[16] the quality runbook's dry run on the card: "
+          + " ".join(f"{k}={v}" for k, v in RUNBOOK_ENV.items()))
+    root = Path(LOG_ROOT, "quality")
+    env = dict(os.environ, **RUNBOOK_ENV, LOGROOT=str(root / "logs"),
+               FID_STATS_DIR=str(root / "stats"))
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", RUNBOOK], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the runbook exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    tag = f"BEST FID@{RUNBOOK_ENV['FID_SIZE']} ({RUNBOOK_ENV['EMBED']} embedder):"
+    best = float(r.stdout.rsplit(tag, 1)[1].split()[0])
+    csv = r.stdout.split("--- ", 1)[1].splitlines()
+    rows = [line for line in csv[2:] if line and line[0].isdigit()]
+    steps = [line.split(",")[0] for line in rows]
+    for line in r.stdout.splitlines():
+        if line.startswith("==") or "img/s" in line or tag in line:
+            log(f"  | {line}")
+    every, last = int(RUNBOOK_ENV["EVAL_EVERY"]), int(RUNBOOK_ENV["STEPS"])
+    if not math.isfinite(best) or steps != [
+            str(i) for i in range(every, last + 1, every)]:
+        raise AssertionError(f"runbook: best FID {best}, evaluations at "
+                             f"steps {steps}")
+    log(f"  runbook: {seconds:.1f} s, best FID@{RUNBOOK_ENV['FID_SIZE']} "
+        f"{best:.6f} (moments), evaluations at steps {steps}")
+    out = {"seconds_runbook": seconds, "best_fid": best, "csv": rows}
+
+    folder = root / "pngs"
+    folder.mkdir(parents=True)
+    images = np.asarray(get_dataset_ref("synthetic_32").images)
+    for i in range(PRECALC_IMAGES):
+        Image.fromarray(images[i]).save(folder / f"{i:04d}.png")
+    weights = root / "inception_random.pth"
+    torch.save(inception_weights(0), weights)
+    torch.backends.cudnn.allow_tf32 = False
+    stats, secs = {}, {}
+    before = os.environ.get("INCEPTION_WEIGHTS")
+    os.environ["INCEPTION_WEIGHTS"] = str(weights)
+    try:
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            path = precalc_stats.main(
+                ["--images", str(folder), "--out",
+                 str(root / f"stats_{device}.npz"), "--embed", "inception",
+                 "--device", device])
+            secs[device] = time.perf_counter() - t0
+            stats[device] = np.load(path)
+    finally:
+        if before is None:
+            del os.environ["INCEPTION_WEIGHTS"]
+        else:
+            os.environ["INCEPTION_WEIGHTS"] = before
+    worst = {}
+    for k in ("mu", "sigma"):
+        _close_card(f"precalc_stats --images {k}",
+                    torch.from_numpy(stats["cuda"][k]),
+                    torch.from_numpy(stats["cpu"][k]), worst)
+    log(f"  precalc_stats --images, {PRECALC_IMAGES} PNGs, InceptionV3 with "
+        f"random weights: mu {stats['cuda']['mu'].shape}, sigma "
+        f"{stats['cuda']['sigma'].shape}; card against CPU at "
+        f"{worst['precalc_stats --images mu']:.3f} and "
+        f"{worst['precalc_stats --images sigma']:.3f} of the tolerance; "
+        f"{secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s on the CPU")
+    out.update(precalc_worst=worst, precalc_seconds=secs,
+               seconds=time.perf_counter() - t16)
+    log(f"  phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2978,6 +3730,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     os.chdir(ROOT)
+
+    global LOG_ROOT
+    logs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
+    LOG_ROOT = logs.name
+    drawing = {DATA_512: (subprocess.Popen(
+        [sys.executable, "-c", DRAW_DATASET, str(ROOT), DATA_512,
+         os.path.join(LOG_ROOT, f"{DATA_512}.pickle")]),
+        os.path.join(LOG_ROOT, f"{DATA_512}.pickle"))}
+    try:
+        return run_phases(args, drawing)
+    finally:
+        for proc, _ in drawing.values():
+            proc.kill()
+            proc.wait()
+        logs.cleanup()
+
+
+def run_phases(args, drawing: dict) -> int:
+    """Phases 1-16 (``main`` starts the dataset draw and stops it)."""
+    import torch
 
     from contrad_tpu_torch.ops import blur
 
@@ -3017,13 +3789,10 @@ def main() -> int:
     from contrad_tpu_torch import (
         train_gan, train_stylegan2, train_stylegan2_contraD)
 
-    global LOG_ROOT
-    logs = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
-    LOG_ROOT = logs.name
     from contrad_tpu_torch.evaluate import fid
 
     fid.STATS_DIR = os.path.join(LOG_ROOT, "fid_stats")  # made in this run
-    share_datasets()
+    share_datasets(drawing)
     count_evaluation_launches()
     phase(f"[4] main path: {STEPS} steps of the 32x32 StyleGAN2 + "
           f"ContraD recipe, batch {BATCH}")
@@ -3099,7 +3868,13 @@ def main() -> int:
     phase11 = graph_phase(per_step)
     phase12 = world_phase(per_step)
     phase13 = data_phase(per_step)
-    logs.cleanup()
+    phase14 = packed_phase({
+        dtype: sum(r["ms_per_step"] for r in runs) / len(runs)
+        for dtype, runs in (
+            ("float32", phase11["times"]["stylegan2_512 f32"]["graph"]),
+            ("bfloat16", phase11["times"]["stylegan2_512 bf16"]["graph"]))})
+    phase15 = variants_phase()
+    phase16 = runbook_phase()
 
     big = max((r for r in rows if r["dtype"] == "float32"),
               key=lambda r: r["bytes"])
@@ -3138,7 +3913,12 @@ def main() -> int:
                for i, r in enumerate(runs)},
             **{f"{name} sharded gloo world of 2, per rank a step (phase "
                f"13c)": r["launches_per_step"]
-               for name, r in phase13["c"].items()}},
+               for name, r in phase13["c"].items()},
+            **{f"{row} {label}, forward and adjoint (phase 14 check)":
+               v["blur_launches"] for row, labels in phase14["check"].items()
+               for label, v in labels.items() if v["blur_launches"]},
+            **{f"{name} (phase 15)": n
+               for name, n in phase15["launches"].items()}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
                                   sndcgan_conditional=0)}]
     total_s = time.perf_counter() - T0
@@ -3159,7 +3939,8 @@ def main() -> int:
             stylegan2_512=dict(train=run512, profile=prof512,
                                card_vs_cpu=check512),
             evaluation=phase8, inception=phase9, bf16=phase10,
-            graphs=phase11, worlds=phase12, data_paths=phase13),
+            graphs=phase11, worlds=phase12, data_paths=phase13,
+            packed=phase14, variants=phase15, runbook=phase16),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

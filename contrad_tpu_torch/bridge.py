@@ -27,7 +27,12 @@ trees, which share the parameters' structure. Rules:
   * ``ConstantInput.const`` (1, 4, 4, C), ToRGB's (1, 1, 1, 3) bias and the
     noise scalars keep their NHWC shapes: the StyleGAN2 port is NHWC inside.
 The StyleGAN2 upsampling ModulatedConv's kernel is converted like any conv;
-that port flips it at run time.
+that port flips it at run time. The same rules carry the variants that no
+registry architecture builds (``tests/test_torch_port_variants.py``): the
+linear head of ``Discriminator(mlp_linear=False)`` (``linear/linear`` and
+``linear/linear_y`` with their ``u``), and ``ResidualDiscriminator``'s and
+``SkipDiscriminator``'s trees (``backbone``, ``block_<res>``, ``last_rgb``,
+``last_conv``, the EqualDense ``fc1`` and ``fc2``).
 
 :func:`adam_state_from_optax` turns an optax ``ScaleByAdamState`` (Adam's
 ``count``, ``mu`` and ``nu``, trees shaped as the parameters) into the

@@ -8,7 +8,7 @@ The protocol is the JAX package's:
     ``third_party/fid/<dataset>_stats.npz`` for the ``inception`` embedder,
     ``third_party/fid/<embedder>/<dataset>_stats.npz`` for any other: the
     files the JAX package writes, so a file either package wrote serves the
-    other;
+    other (``$FID_STATS_DIR`` in place of ``third_party/fid`` where set);
   * an update draws ``size`` samples, embeds them and averages ``n_avg``
     FID trials; chunk ``i`` of trial ``seed`` is drawn from seed
     ``seed * 100003 + i``;
@@ -42,8 +42,11 @@ SamplerFn = Callable[[int, int], np.ndarray]
 # Embedder: uint8 or float images (n, H, W, C) -> features (n, d)
 EmbedFn = Callable[[np.ndarray], np.ndarray]
 
-STATS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "third_party", "fid")
+# The statistics cache: ``third_party/fid/`` of the checkout, where the JAX
+# package keeps it, or ``$FID_STATS_DIR``.
+STATS_DIR = os.environ.get("FID_STATS_DIR") or os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "third_party", "fid")
 EMBEDDERS = ("inception", "torch_inception", "moments")
 
 

@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 from contrad_tpu_torch import DtypeLike, reduced_dtype, resolve_device
-from contrad_tpu_torch.models.base import Discriminator, l2_normalize_rows
+from contrad_tpu_torch.models.base import (
+    Discriminator, NullDiscriminator, l2_normalize_rows, projection)
 
 
 ARCHITECTURES = ("sndcgan", "snresnet18", "stylegan2", "stylegan2_512",
@@ -56,30 +57,31 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
             torch.manual_seed(seed)
         if architecture == "sndcgan":
             generator = GSndcgan(image_size, dtype=dtype)
-            discriminator = DSndcgan(image_size, d_hidden=512,
-                                     n_classes=n_classes, dtype=dtype)
+            discriminator = DSndcgan(image_size, mlp_linear=True,
+                                     d_hidden=512, n_classes=n_classes,
+                                     dtype=dtype)
         elif architecture == "snresnet18":
             generator = GSndcgan(image_size, dtype=dtype)
-            discriminator = DSnresnet18(d_hidden=1024, n_classes=n_classes,
-                                        dtype=dtype)
+            discriminator = DSnresnet18(mlp_linear=True, d_hidden=1024,
+                                        n_classes=n_classes, dtype=dtype)
         elif architecture == "stylegan2":
             generator = GStylegan2(size=resolution, n_mlp=8, small32=True,
                                    dtype=dtype)
             discriminator = DStylegan2(size=resolution, small32=True,
-                                       d_hidden=512, n_classes=n_classes,
-                                       dtype=dtype)
+                                       mlp_linear=True, d_hidden=512,
+                                       n_classes=n_classes, dtype=dtype)
         elif architecture == "stylegan2_512":
             generator = GStylegan2(size=resolution, n_mlp=8,
                                    channel_multiplier=1.0, dtype=dtype)
             discriminator = DStylegan2(size=resolution, channel_multiplier=1.0,
-                                       d_hidden=512, n_classes=n_classes,
-                                       dtype=dtype)
+                                       mlp_linear=True, d_hidden=512,
+                                       n_classes=n_classes, dtype=dtype)
         else:
             generator = GStylegan2(size=resolution, n_mlp=2,
                                    channel_multiplier=0.25, dtype=dtype)
             discriminator = DStylegan2(size=resolution, channel_multiplier=0.25,
-                                       d_hidden=32, n_classes=n_classes,
-                                       dtype=dtype)
+                                       mlp_linear=True, d_hidden=32,
+                                       n_classes=n_classes, dtype=dtype)
     return generator.to(device), discriminator.to(device)
 
 
@@ -104,4 +106,4 @@ def generate(generator: nn.Module, z: torch.Tensor,
 
 
 __all__ = ["ARCHITECTURES", "get_architecture", "generate", "Discriminator",
-           "l2_normalize_rows"]
+           "NullDiscriminator", "l2_normalize_rows", "projection"]

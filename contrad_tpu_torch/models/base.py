@@ -1,16 +1,18 @@
 """Discriminator head protocol (the port of ``contrad_tpu/models/base.py``).
 
 Every discriminator is a backbone (penultimate feature extractor) plus three
-heads: ``linear``, the GAN score head (a 2-layer LeakyReLU(0.1) MLP, the
-``mlp_linear=True`` form every registry architecture uses), and
+heads: ``linear``, the GAN score head (a plain spectrally normalised linear
+layer, the JAX default ``mlp_linear=False``; or a 2-layer LeakyReLU(0.1)
+MLP, the ``mlp_linear=True`` form every registry architecture uses), and
 ``projection`` / ``projection2``, two 2-layer MLPs for the SimCLR and
 supervised-contrastive losses. With ``sg_linear=True`` the GAN head sees
 detached features, so the backbone learns only from the contrastive losses
 (the ContraD mechanism, reference ``base.py:123-126``).
 
 A conditional discriminator (``n_classes > 1``) adds projection
-discrimination to the GAN head: ``d + sum(h * embed(y))``, ``h`` the head's
-hidden activation and ``embed`` the spectrally normalised class table
+discrimination to the GAN head: ``d + sum(h * embed(y))``, ``h`` the MLP
+head's hidden activation (the features themselves for the linear head) and
+``embed`` the spectrally normalised class table
 ``linear.linear_y`` (reference ``base.py:107-130``). Without labels it
 scores as an unconditional one.
 
@@ -57,6 +59,29 @@ class TinyDiscriminatorHead(nn.Module):
         return d
 
 
+class LinearDiscriminatorHead(nn.Module):
+    """Plain linear GAN score head (reference LinearDiscriminator,
+    base.py:38-54), with the class projection ``linear_y`` of the features
+    where ``n_classes > 1``."""
+
+    def __init__(self, n_features: int, use_sn: bool = False,
+                 init: Init = lecun_normal_, n_classes: int = 1):
+        super().__init__()
+        self.linear = SNDense(n_features, 1, use_sn=use_sn, init=init)
+        self.linear_y = (SNEmbed(n_classes, n_features, use_sn=use_sn)
+                         if n_classes > 1 else None)
+
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                train: bool = True, persist: bool = True) -> torch.Tensor:
+        d = self.linear(x, train, persist)
+        if y is not None:
+            if self.linear_y is None:
+                raise ValueError("an unconditional head takes no labels")
+            w_y = self.linear_y(y, train, persist)
+            d = d + torch.sum(x * w_y, dim=1, keepdim=True)
+        return d
+
+
 class ProjectionMLP(nn.Module):
     """d_penul -> d_hidden -> d_project with LeakyReLU(0.1) (base.py:92-101)."""
 
@@ -75,18 +100,24 @@ class ProjectionMLP(nn.Module):
 class Discriminator(nn.Module):
     """Backbone + {linear, projection, projection2} heads. The backbone maps
     an NHWC image batch in [0, 1] to (N, d_penul) features and takes
-    ``train`` and ``persist`` as the heads do. ``head_init`` initialises the
-    heads' weights (lecun-normal, or N(0, 0.02) for SNDCGAN)."""
+    ``train`` and ``persist`` as the heads do. ``mlp_linear`` picks the GAN
+    head: the 2-layer MLP, or (False, the JAX default) the linear head.
+    ``head_init`` initialises the heads' weights (lecun-normal, or
+    N(0, 0.02) for SNDCGAN)."""
 
     def __init__(self, backbone: nn.Module, d_penul: int, d_hidden: int = 128,
                  d_project: int = 128, use_sn: bool = False,
-                 head_init: Init = lecun_normal_, n_classes: int = 1):
+                 head_init: Init = lecun_normal_, n_classes: int = 1,
+                 mlp_linear: bool = False):
         super().__init__()
         self.backbone = backbone
         self.d_penul = d_penul
         self.n_classes = n_classes
-        self.linear = TinyDiscriminatorHead(d_penul, d_hidden, use_sn,
-                                            head_init, n_classes)
+        self.linear = (
+            TinyDiscriminatorHead(d_penul, d_hidden, use_sn, head_init,
+                                  n_classes) if mlp_linear
+            else LinearDiscriminatorHead(d_penul, use_sn, head_init,
+                                         n_classes))
         self.projection = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
                                         head_init)
         self.projection2 = ProjectionMLP(d_penul, d_hidden, d_project, use_sn,
@@ -123,6 +154,24 @@ class LinearClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear(x)
+
+
+class NullDiscriminator(nn.Module):
+    """Identity-score D: sums each sample's inputs (reference
+    base.py:64-70)."""
+
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                train: bool = True, persist: bool = True) -> torch.Tensor:
+        return torch.sum(x.reshape(x.shape[0], -1), dim=1, keepdim=True)
+
+
+def projection(discriminator: Discriminator, inputs: torch.Tensor,
+               train: bool = True, persist: bool = True) -> torch.Tensor:
+    """The (un-normalised) projection head's output of a D pass (reference
+    base.py:73-76). The D's state is its modules': with ``train`` and
+    ``persist`` the pass stages spectral norm's ``u`` for
+    :func:`~contrad_tpu_torch.ops.spectral_norm.commit_u`."""
+    return discriminator(inputs, train=train, persist=persist)[1]["projection"]
 
 
 def l2_normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -187,10 +187,13 @@ def sndcgan_n_features(image_size: Tuple[int, int, int], ndf: int = 64) -> int:
 
 def DSndcgan(image_size: Tuple[int, int, int], ndf: int = 64,
              d_hidden: int = 128, n_classes: int = 1,
-             dtype: Optional[torch.dtype] = None) -> Discriminator:
+             dtype: Optional[torch.dtype] = None,
+             mlp_linear: bool = False) -> Discriminator:
     """SNDCGAN backbone + the three heads, all spectral-normed, heads at
-    N(0, 0.02) (the reference re-inits them so)."""
+    N(0, 0.02) (the reference re-inits them so); ``mlp_linear`` as in
+    :class:`~contrad_tpu_torch.models.base.Discriminator`."""
     return Discriminator(
         backbone=SndcganBackbone(image_size, ndf, dtype=dtype),
         d_penul=sndcgan_n_features(image_size, ndf), d_hidden=d_hidden,
-        use_sn=True, head_init=dcgan_normal_, n_classes=n_classes)
+        use_sn=True, head_init=dcgan_normal_, n_classes=n_classes,
+        mlp_linear=mlp_linear)

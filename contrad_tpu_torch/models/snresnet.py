@@ -83,19 +83,22 @@ class SnresnetBackbone(nn.Module):
 
 
 def _make(num_blocks, d_hidden: int = 128, use_sn: bool = True,
-          n_classes: int = 1, dtype: Optional[torch.dtype] = None
-          ) -> Discriminator:
+          n_classes: int = 1, dtype: Optional[torch.dtype] = None,
+          mlp_linear: bool = False) -> Discriminator:
     # 512 channels x 1 x 1 after avg_pool(4) on the /8 features of 32x32
     return Discriminator(
         backbone=SnresnetBackbone(num_blocks, use_sn, dtype=dtype),
-        d_penul=512, d_hidden=d_hidden, use_sn=use_sn, n_classes=n_classes)
+        d_penul=512, d_hidden=d_hidden, use_sn=use_sn, n_classes=n_classes,
+        mlp_linear=mlp_linear)
 
 
 def DSnresnet18(d_hidden: int = 128, use_sn: bool = True, n_classes: int = 1,
-                dtype: Optional[torch.dtype] = None) -> Discriminator:
-    return _make((2, 2, 2, 2), d_hidden, use_sn, n_classes, dtype)
+                dtype: Optional[torch.dtype] = None,
+                mlp_linear: bool = False) -> Discriminator:
+    return _make((2, 2, 2, 2), d_hidden, use_sn, n_classes, dtype, mlp_linear)
 
 
 def DSnresnet34(d_hidden: int = 128, use_sn: bool = True, n_classes: int = 1,
-                dtype: Optional[torch.dtype] = None) -> Discriminator:
-    return _make((3, 4, 6, 3), d_hidden, use_sn, n_classes, dtype)
+                dtype: Optional[torch.dtype] = None,
+                mlp_linear: bool = False) -> Discriminator:
+    return _make((3, 4, 6, 3), d_hidden, use_sn, n_classes, dtype, mlp_linear)

@@ -1,12 +1,19 @@
-"""StyleGAN2 discriminator (the port of
-``contrad_tpu/models/stylegan2/discriminator.py``): ResidualDiscriminatorP,
-FromRGB -> residual downsample blocks (/sqrt(2)) -> minibatch stddev ->
-3x3 conv -> flattened penultimate features, wrapped with the three heads of
+"""StyleGAN2 discriminators (the port of
+``contrad_tpu/models/stylegan2/discriminator.py``). ``DStylegan2`` is the
+registry's ResidualDiscriminatorP: FromRGB -> residual downsample blocks
+(/sqrt(2)) -> minibatch stddev -> 3x3 conv -> flattened penultimate
+features, wrapped with the three heads of
 :class:`contrad_tpu_torch.models.base.Discriminator`. No spectral norm.
 Under a bfloat16 compute dtype (``dtype``) the input ``x * 2 - 1`` is cast
 to it and the layers follow; the minibatch stddev is taken in float32 and
 cast back, and the features reach the heads in float32
 (``contrad_tpu/models/stylegan2/discriminator.py:40-151``).
+
+``ResidualDiscriminator`` and ``SkipDiscriminator`` (reference
+``discriminator.py:79-188``) are in the JAX package's API but no registry
+architecture builds them; they score with an EqualLinear head instead of
+the three heads, and run in the parameters' dtype. ``SkipBlock`` blurs and
+subsamples the image through the blur kernel (``Downsample``).
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ from torch import nn
 from contrad_tpu_torch import at_least_f32, cast
 from contrad_tpu_torch.models.base import Discriminator
 from contrad_tpu_torch.models.stylegan2.generator import stylegan2_channels
-from contrad_tpu_torch.models.stylegan2.layers import ConvLayer, FromRGB
+from contrad_tpu_torch.models.stylegan2.layers import (
+    ConvLayer, Downsample, EqualDense, FromRGB)
 from contrad_tpu_torch.parallel import data_shard
 
 
@@ -110,10 +118,88 @@ class ResidualBackbone(nn.Module):
 def DStylegan2(size: int, channel_multiplier: float = 2.0,
                blur_kernel: Sequence[int] = (1, 3, 3, 1),
                small32: bool = False, d_hidden: int = 128,
-               n_classes: int = 1, dtype: Optional[torch.dtype] = None
-               ) -> Discriminator:
+               n_classes: int = 1, dtype: Optional[torch.dtype] = None,
+               mlp_linear: bool = False) -> Discriminator:
     channels = stylegan2_channels(channel_multiplier, small32)
     return Discriminator(
         backbone=ResidualBackbone(size, channel_multiplier, blur_kernel,
                                   small32, dtype),
-        d_penul=channels[4] * 4 * 4, d_hidden=d_hidden, n_classes=n_classes)
+        d_penul=channels[4] * 4 * 4, d_hidden=d_hidden, n_classes=n_classes,
+        mlp_linear=mlp_linear)
+
+
+class ResidualDiscriminator(nn.Module):
+    """Plain (non-protocol) residual D with the EqualLinear head
+    (reference discriminator.py:79-128): the backbone's features, a
+    leaky-ReLU EqualDense to ``channels[4]``, then one to the score."""
+
+    def __init__(self, size: int, channel_multiplier: float = 2.0,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1),
+                 small32: bool = False):
+        super().__init__()
+        channels = stylegan2_channels(channel_multiplier, small32)
+        self.backbone = ResidualBackbone(size, channel_multiplier,
+                                         blur_kernel, small32)
+        self.fc1 = EqualDense(channels[4] * 4 * 4, channels[4],
+                              activation=True)
+        self.fc2 = EqualDense(channels[4], 1)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        return self.fc2(self.fc1(self.backbone(x, train)))
+
+
+class SkipBlock(nn.Module):
+    """FromRGB + conv pair + the image's blur downsample (reference
+    discriminator.py:36-57): returns the downsampled image and the
+    features."""
+
+    def __init__(self, in_features: int, features: int,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1)):
+        super().__init__()
+        self.from_rgb = FromRGB(in_features)
+        self.conv1 = ConvLayer(in_features, in_features, 3, activate=True)
+        self.conv2 = ConvLayer(in_features, features, 3,
+                               blur_kernel=blur_kernel, downsample=True,
+                               activate=True)
+        self.downsample = Downsample(blur_kernel)
+
+    def forward(self, x: torch.Tensor,
+                features: Optional[torch.Tensor] = None):
+        out = self.from_rgb(x)
+        features = out if features is None else out + features
+        features = self.conv2(self.conv1(features))
+        return self.downsample(x), features
+
+
+class SkipDiscriminator(nn.Module):
+    """Skip-connection D (reference discriminator.py:131-188): a SkipBlock
+    a level on the image pyramid, FromRGB of the 4x4 image, minibatch
+    stddev, a 3x3 conv and the EqualLinear head."""
+
+    def __init__(self, size: int, channel_multiplier: float = 2.0,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1),
+                 small32: bool = False):
+        super().__init__()
+        channels = stylegan2_channels(channel_multiplier, small32)
+        self.block_names = []
+        for i in range(int(math.log2(size)), 2, -1):
+            name = f"block_{2**i}"
+            self.add_module(name, SkipBlock(channels[2**i],
+                                            channels[2 ** (i - 1)],
+                                            blur_kernel))
+            self.block_names.append(name)
+        self.last_rgb = FromRGB(channels[4])
+        self.last_conv = ConvLayer(channels[4] + 1, channels[4], 3,
+                                   activate=True)
+        self.fc1 = EqualDense(channels[4] * 4 * 4, channels[4],
+                              activation=True)
+        self.fc2 = EqualDense(channels[4], 1)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        x = x * 2.0 - 1.0
+        features = None
+        for name in self.block_names:
+            x, features = getattr(self, name)(x, features)
+        features = self.last_rgb(x) + features
+        features = self.last_conv(minibatch_stddev(features))
+        return self.fc2(self.fc1(features.reshape(features.shape[0], -1)))

@@ -233,10 +233,27 @@ class GStylegan2(nn.Module):
             x = layer(x)
         return x
 
+    def mean_latent(self, n_latent: int,
+                    generator: torch.Generator) -> torch.Tensor:
+        """The mean w of ``n_latent`` latents drawn from ``generator``,
+        (1, style_dim)
+        (``contrad_tpu/models/stylegan2/generator.py:334-336``)."""
+        z = self.sample_latent(n_latent, generator)
+        return torch.mean(self.style_forward(z), dim=0, keepdim=True)
+
     def forward(self, z: torch.Tensor, noise: List[torch.Tensor],
-                mixing: Optional[Mixing] = None, train: bool = True):
-        latent = self.style_forward(z)
-        latents = latent[:, None, :].expand(-1, self.n_latent, -1)
+                mixing: Optional[Mixing] = None, train: bool = True,
+                input_is_latent: bool = False, return_latents: bool = False):
+        """Images from latents ``z`` (N, style_dim), or with
+        ``input_is_latent`` from styles w: (N, style_dim), one a sample,
+        or (N, n_latent, style_dim), one a layer. ``mixing`` replaces the
+        layers from each sample's crossover on with the style of
+        ``z_mix``, which goes through the style MLP whatever the input.
+        ``return_latents`` returns ``(image, latents)``, the per-layer
+        styles after mixing."""
+        latent = z if input_is_latent else self.style_forward(z)
+        latents = (latent if latent.dim() == 3
+                   else latent[:, None, :].expand(-1, self.n_latent, -1))
         if mixing is not None:
             z_mix, mix_layer = mixing
             latent_mix = self.style_forward(z_mix)[:, None, :]
@@ -256,5 +273,7 @@ class GStylegan2(nn.Module):
             idx += 2
         # training emits the compute dtype, eval float32 (JAX's rule)
         if train:
-            return 0.5 * cast(skip, self.dtype) + 0.5
-        return torch.clamp(0.5 * at_least_f32(skip) + 0.5, 0.0, 1.0)
+            image = 0.5 * cast(skip, self.dtype) + 0.5
+        else:
+            image = torch.clamp(0.5 * at_least_f32(skip) + 0.5, 0.0, 1.0)
+        return (image, latents) if return_latents else image

@@ -103,6 +103,22 @@ class Blur(nn.Module):
         return blur2d(x, self.taps_v, self.taps_h, self.pad)
 
 
+class Downsample(nn.Module):
+    """``downsample2d``: the FIR blur with pads ``((p + 1) // 2, p // 2)``,
+    ``p = len(kernel) - factor``, through the blur kernel, then every
+    ``factor``-th row and column
+    (``contrad_tpu/models/stylegan2/layers.py:124-130``)."""
+
+    def __init__(self, kernel: Sequence[int] = (1, 3, 3, 1), factor: int = 2):
+        super().__init__()
+        p = len(kernel) - factor
+        self.blur = Blur(kernel, pad=((p + 1) // 2, p // 2))
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blur(x)[:, ::self.factor, ::self.factor]
+
+
 class ConvLayer(nn.Module):
     """[Blur +] EqualConv [+ FusedLeakyReLU]; downsample = blur, then a
     stride-2 conv (reference layers.py:174-199)."""

@@ -99,6 +99,35 @@ def downsample2d(x: torch.Tensor, kernel: np.ndarray, factor: int = 2):
     return upfirdn2d(x, kernel, down=factor, pad=((p + 1) // 2, p // 2))
 
 
+def compose_blur_kernel(blur: np.ndarray, w: torch.Tensor) -> torch.Tensor:
+    """Fold a FIR blur into an adjacent conv: K[o, i, u, v] =
+    sum_{s,t} blur[s, t] * w[o, i, u - s, v - t], the full 2-D convolution
+    over the spatial dims (``contrad_tpu/ops/upfirdn2d.py:105``).
+
+    conv_s(blur(x), w) == conv_s(x, K) and blur(conv_transpose(x, w)) ==
+    lhs-dilated-conv(x, K) with adjusted padding, exactly, the blur being a
+    per-channel spatial filter. The models keep the blur kernel, then the
+    conv; this serves the comparison of the two (``chip_smoke.py`` phase
+    14) and the tests.
+
+    ``blur``: (kb, kb) numpy; ``w``: OIHW (out, in, k, k). Returns
+    (out, in, k+kb-1, k+kb-1), as one matmul against the JAX package's
+    static (kk^2, k^2) tap matrix."""
+    kb = blur.shape[0]
+    out_ch, in_ch, k, _ = w.shape
+    kk = k + kb - 1
+    m = np.zeros((kk * kk, k * k), np.float32)
+    for u in range(kk):
+        for v in range(kk):
+            for d in range(max(0, u - kb + 1), min(k, u + 1)):
+                for e in range(max(0, v - kb + 1), min(k, v + 1)):
+                    m[u * kk + v, d * k + e] = blur[u - d, v - e]
+    mt = device_constant(tuple(m.ravel().tolist()), w.dtype,
+                         w.device).view(kk * kk, k * k)
+    out = w.reshape(out_ch * in_ch, k * k) @ mt.T
+    return out.reshape(out_ch, in_ch, kk, kk)
+
+
 def blur_taps(kernel: np.ndarray, upsample_factor: int = 1):
     """(vertical, horizontal) taps of ``kernel * upsample_factor**2``."""
     k = kernel * (upsample_factor**2) if upsample_factor > 1 else kernel

@@ -290,7 +290,8 @@ def run_recipe(args, device: torch.device,
 
         torch.manual_seed(args.seed)
         G = GSndcgan(img, ngf=8, nz=16).to(device)
-        D = DSndcgan(img, ndf=8, d_hidden=32, n_classes=n_classes).to(device)
+        D = DSndcgan(img, ndf=8, mlp_linear=True, d_hidden=32,
+                     n_classes=n_classes).to(device)
     else:
         G, D = get_architecture(args.arch or "stylegan2_tiny", img,
                                 device=device, seed=args.seed,

@@ -161,7 +161,7 @@ def sndcgan():
                                       train=True))(kd)
     pg = _load(GSndcgan(IMG, ngf=NGF, nz=NZ, dtype=torch.bfloat16),
                g_vars["params"], {"batch_stats": g_vars["batch_stats"]})
-    pd = _load(DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN,
+    pd = _load(DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN,
                         dtype=torch.bfloat16),
                d_vars["params"], {"spectral": d_vars["spectral"]})
     return G, D, g_vars, d_vars, pg, pd
@@ -253,7 +253,8 @@ def test_snresnet18_discriminator_bf16_matches_jax():
     D = JaxResD(mlp_linear=True, d_hidden=D_HIDDEN, dtype=BF)
     d_vars = jax.jit(lambda k: D.init(k, jnp.zeros((2,) + img), train=True))(
         jax.random.PRNGKey(3))
-    pd = _load(DSnresnet18(d_hidden=D_HIDDEN, dtype=torch.bfloat16),
+    pd = _load(DSnresnet18(mlp_linear=True, d_hidden=D_HIDDEN,
+                           dtype=torch.bfloat16),
                d_vars["params"], {"spectral": d_vars["spectral"]})
     x_jax, x_port = bf16_pair(np.random.default_rng(4).uniform(
         size=(2,) + img))

@@ -276,7 +276,8 @@ def test_contrad_gan_step_bf16_matches_jax(monkeypatch):
     draws = jax_step_draws("contrad", "none", key, N, 1, False, IMG, NZ)
 
     pg = GSndcgan(IMG, ngf=NGF, nz=NZ, dtype=torch.bfloat16)
-    pd = DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN, dtype=torch.bfloat16)
+    pd = DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN,
+                  dtype=torch.bfloat16)
     pg.load_state_dict(torch_state_dict(
         to_np(g_vars["params"]), {"batch_stats": to_np(g_vars["batch_stats"])}))
     pd.load_state_dict(torch_state_dict(
@@ -298,7 +299,8 @@ def test_contrad_gan_step_bf16_matches_jax(monkeypatch):
     # the control: G in float32 (its gradients about as far from JAX's
     # bfloat16 ones as JAX's float32 ones are) is refused
     ctrl_g = GSndcgan(IMG, ngf=NGF, nz=NZ)
-    ctrl_d = DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN, dtype=torch.bfloat16)
+    ctrl_d = DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN,
+                      dtype=torch.bfloat16)
     ctrl_g.load_state_dict(torch_state_dict(
         to_np(g_vars["params"]), {"batch_stats": to_np(g_vars["batch_stats"])}))
     ctrl_d.load_state_dict(torch_state_dict(

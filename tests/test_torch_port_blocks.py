@@ -188,7 +188,7 @@ def _sndcgan_pair(n_classes):
     d_vars = {"params": _f64(d_vars["params"]),
               "spectral": to_np(d_vars["spectral"])}
     pg = GSndcgan(IMG, ngf=NGF, nz=NZ).double()
-    pd = DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN,
+    pd = DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN,
                   n_classes=n_classes).double()
     pg.load_state_dict(torch_state_dict(
         g_vars["params"], {"batch_stats": g_vars["batch_stats"]}), strict=True)

@@ -68,7 +68,7 @@ def pair():
 
     def port():
         pg = GSndcgan(IMG, ngf=NGF, nz=NZ).double()
-        pd = DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN,
+        pd = DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN,
                       n_classes=N_CLASSES).double()
         pg.load_state_dict(torch_state_dict(
             g_vars["params"], {"batch_stats": g_vars["batch_stats"]}),
@@ -214,10 +214,10 @@ def test_conditional_step_needs_labels_and_unconditional_ignores_them(pair):
     with pytest.raises(ValueError, match="pass labels"):
         trainer.train_step(torch.rand(N, *IMG, dtype=torch.float64))
     with pytest.raises(ValueError, match="unconditional head"):
-        DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN)(
+        DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN)(
             torch.rand(2, *IMG), y=torch.zeros(2, dtype=torch.long))
     pg = GSndcgan(IMG, ngf=NGF, nz=NZ)
-    pd = DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN)
+    pd = DSndcgan(IMG, ndf=NDF, mlp_linear=True, d_hidden=D_HIDDEN)
     trainer = GANTrainer(pg, pd, mode="std", augment=get_augment("none"),
                          g_optimizer=RecordingSGD(pg.parameters()),
                          d_optimizer=RecordingSGD(pd.parameters()),

@@ -3,7 +3,8 @@ every code path it has (16-byte packs in float32 and bfloat16; one channel a
 pack where C * itemsize % 16 != 0 or the data is not 16-byte aligned; strips
 that do not divide the height; rows wider than one block; asymmetric pads;
 1 to 4 taps; the 512x512 recipe's largest tensors), under a CUDA graph, and
-the StyleGAN2 G and D going through it. Every test here needs a CUDA card
+the StyleGAN2 G and D going through it, ``SkipDiscriminator`` too; the
+packed convolutions of ``ops/packed.py`` against the unpacked ones. Every test here needs a CUDA card
 and skips without one (the kernel has no CPU mode). The file imports
 nothing of JAX, so it runs on a machine without it:
 
@@ -475,3 +476,70 @@ def test_prefetch_copies_pinned_batches_to_the_card(cuda):
     assert torch.equal(next(resumed)[0].cpu(),
                        torch.from_numpy(next(ref)[0]))
     resumed.close()
+
+
+@pytest.mark.parametrize("k,stride,pad,f_in,f_out,ci,co", [
+    (3, 1, (1, 1), 2, 2, 32, 32),   # D block_512.conv1 packed
+    (6, 2, (2, 2), 2, 2, 32, 64),   # its blur-folded conv2, packed-to-packed
+    (1, 1, (0, 0), 2, 2, 3, 32),    # the FromRGB stem
+    (1, 1, (0, 0), 1, 2, 3, 32),    # the folded 2x2 stride-2 stem
+])
+def test_packed_convs_match_unpacked_on_the_card(cuda, k, stride, pad, f_in,
+                                                  f_out, ci, co):
+    """``ops/packed.py`` on CUDA tensors: each packed conv, with its input
+    and weight gradients, against the unpacked conv, within 1e-4 +
+    1e-4 * max (the weight gradients are sums over 16k pixels;
+    ``chip_smoke.py`` phase 14 checks the recipe's sizes)."""
+    import torch.nn.functional as F
+
+    from contrad_tpu_torch.ops.packed import (
+        depth_to_space, packed_conv, space_to_depth)
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 64, 64, ci, generator=gen, device=cuda)
+    w = torch.randn(co, ci, k, k, generator=gen, device=cuda) / (ci * k * k)
+    gy = torch.randn(4, 64 // stride, 64 // stride, co, generator=gen,
+                     device=cuda)
+
+    def run(packed):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        if packed:
+            y = depth_to_space(packed_conv(space_to_depth(xx, f_in), ww, f_in,
+                                           f_out, stride, pad), f_out)
+        else:
+            y = F.conv2d(F.pad(xx.permute(0, 3, 1, 2), (*pad, *pad)), ww,
+                         stride=stride).permute(0, 2, 3, 1)
+        return (y.detach(), *torch.autograd.grad(y, (xx, ww), gy))
+
+    for a, b in zip(run(True), run(False)):  # phase 14's tolerance
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-4 + 1e-4 * float(
+            b.abs().max())
+
+
+def test_skip_discriminator_goes_through_the_kernel(cuda):
+    """``SkipDiscriminator`` on the card launches the blur kernel once per
+    ``Blur`` forward (each SkipBlock's image downsample and conv2) and once
+    per adjoint, and matches the CPU."""
+    from contrad_tpu_torch.models.stylegan2 import SkipDiscriminator
+    from contrad_tpu_torch.models.stylegan2.layers import Blur
+
+    torch.manual_seed(0)
+    d = SkipDiscriminator(16, channel_multiplier=0.25)
+    d_card = copy.deepcopy(d).to(cuda)
+    blurs = sum(isinstance(m, Blur) for m in d.modules())
+    assert blurs == 4  # two SkipBlocks (16, 8), two blurs each
+    x = torch.rand(4, 16, 16, 3)
+
+    def run(model, device):
+        xx = x.to(device).requires_grad_(True)
+        score = model(xx)
+        return score.detach().cpu(), torch.autograd.grad(
+            score.sum(), xx)[0].cpu()
+
+    before = blur.blur2d.launches
+    got = run(d_card, cuda)
+    torch.cuda.synchronize()
+    assert blur.blur2d.launches == before + 2 * blurs
+    for a, b in zip(got, run(d, "cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -3,13 +3,16 @@
 * It stands alone: no module of ``contrad_tpu_torch/``, and not
   ``chip_smoke.py``, imports ``jax``, ``flax``, ``optax``, anything of
   ``contrad_tpu``, or ``third_party`` (whose torch InceptionV3 the port
-  keeps a copy of) (an AST scan of every file, dynamic imports included).
+  keeps a copy of) (an AST scan of every file, dynamic imports included);
+  and no shell script of the port calls the JAX CLIs, the JAX package's
+  ``tools/`` or a ``contrad_tpu.`` module (a scan of its commands).
 * Its entry points run on the card: without one they raise, unless the
   caller asks for ``device="cpu"``; the blur runs its plain version for CPU
   tensors only and refuses any other device.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +68,45 @@ def test_port_imports_nothing_of_jax(path):
 ])
 def test_the_scan_finds_each_form_of_import(source, found):
     assert FORBIDDEN.intersection(imported_roots(source)) == found
+
+
+# a python run that is not a port module; the JAX package's tools/; a
+# module of the JAX package
+SHELL_FORBIDDEN = re.compile(
+    r"\bpython3?\s+(?!-m\s+contrad_tpu_torch\.)|(^|[\s\"'=(])\.?/?tools/"
+    r"|\bcontrad_tpu\.")
+
+
+def forbidden_shell_calls(source: str):
+    """The command lines of a shell script (comments dropped) that run
+    something of the JAX side."""
+    for line in source.splitlines():
+        command = re.sub(r"(^|\s)#.*$", "", line)
+        if SHELL_FORBIDDEN.search(command):
+            yield line.strip()
+
+
+@pytest.mark.parametrize("path", sorted(
+    (ROOT / "contrad_tpu_torch").rglob("*.sh")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_scripts_call_only_the_port(path):
+    assert not list(forbidden_shell_calls(path.read_text()))
+
+
+@pytest.mark.parametrize("line,found", [
+    ("python train_gan.py configs/x.toml sndcgan", True),
+    ("python tools/precalc_stats.py --dataset cifar10", True),
+    ("python3 test_gan_sample.py logs/run sndcgan", True),
+    ("bash tools/quality_run.sh", True),
+    ("X=$(python -m contrad_tpu.evaluate.fid cifar10)", True),
+    ("    python -m contrad_tpu.tools.precalc_stats --dataset x", True),
+    ("python -m contrad_tpu_torch.train_gan configs/x.toml sndcgan", False),
+    ("python -m contrad_tpu_torch.tools.precalc_stats --dataset x", False),
+    ("# python train_gan.py, as the JAX runbook calls it", False),
+    ("cd \"$(dirname \"$0\")/../..\"  # python tools/x.py", False),
+])
+def test_the_shell_scan_finds_each_call(line, found):
+    assert bool(list(forbidden_shell_calls(line))) == found
 
 
 @pytest.fixture
@@ -149,6 +191,8 @@ def test_blur_refuses_devices_other_than_cuda_and_cpu():
     ("test_fid_is", ["logs/none", "--dataset", "cifar10"]),
     ("test_tf_inception", ["logs/none", "logs/none/stats.npz"]),
     ("evaluate.fid", ["cifar10"]),
+    ("tools.precalc_stats", ["--dataset", "cifar10"]),
+    ("tools.precalc_stats", ["--images", "logs/none", "--embed", "moments"]),
 ])
 def test_evaluation_clis_default_to_the_card(no_card, cli, argv):
     import importlib

@@ -65,7 +65,8 @@ def build_sndcgan_pair(seed=0):
 
     def port(g_state=None, d_state=None):
         pg = GSndcgan(IMG, ngf=NGF, nz=NZ).double()
-        pd = DSndcgan(IMG, ndf=NDF, d_hidden=D_HIDDEN).double()
+        pd = DSndcgan(IMG, ndf=NDF, mlp_linear=True,
+                      d_hidden=D_HIDDEN).double()
         g = g_state or g_vars
         d = d_state or d_vars
         pg.load_state_dict(torch_state_dict(

@@ -60,7 +60,7 @@ def pair():
 
     def port():
         pg = GSndcgan(IMG, ngf=NGF, nz=NZ).double()
-        pd = DSnresnet18(d_hidden=D_HIDDEN).double()
+        pd = DSnresnet18(mlp_linear=True, d_hidden=D_HIDDEN).double()
         pg.load_state_dict(torch_state_dict(
             g_vars["params"], {"batch_stats": g_vars["batch_stats"]}),
             strict=True)
