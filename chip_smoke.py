@@ -131,7 +131,8 @@ result line:
    jitter's two orders against one and Adam's device-side schedule, timed,
    and its bias corrections on the card against the CPU's, the earlier
    host formula's and the correctly rounded ones; ``--trace_steps 2`` on
-   the 32x32 recipe writing one trace file;
+   the 32x32 recipe writing one trace file of graph replays at K = 4 with
+   the step's phase marks (``utils/trace.py``);
 12. data parallelism over processes (``--multihost``,
    ``contrad_tpu_torch/parallel``): (a) each README recipe at full width
    (the flagship at batch 512, the 32x32 StyleGAN2 recipe at 64, the
@@ -2407,12 +2408,15 @@ def graph_phase(per_step) -> dict:
     r = run_cli(train_stylegan2.main, RECIPE + ["--trace_steps", "2"],
                 "synthetic_32", 4, BATCH, GRAPH_K)
     traces = sorted(Path(r["logdir"], "profile").glob("*.json"))
-    if r["dispatch"]["k"] != 1 or len(traces) != 1:
+    if r["dispatch"]["k"] != GRAPH_K or len(traces) != 1:
         raise AssertionError(f"--trace_steps 2: K {r['dispatch']['k']}, "
                              f"trace files {traces}")
     out["trace_bytes"] = traces[0].stat().st_size
+    marks = traces[0].read_text().count('"contrad_mark_step_begin"')
+    if marks < GRAPH_K:
+        raise AssertionError(f"--trace_steps 2: {marks} step marks")
     log(f"  trace {traces[0].name}: {out['trace_bytes'] / 2**20:.2f} MiB; "
-        f"K = 1")
+        f"K = {GRAPH_K}, {marks} step marks")
     out["seconds"] = time.perf_counter() - t11
     log(f"  phase 11: {out['seconds']:.1f} s")
     return out

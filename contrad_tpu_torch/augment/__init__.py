@@ -12,6 +12,10 @@ steers Python control flow and a step can be captured in a CUDA graph).
   simclr            = RRC -> HFlip -> RandomApply(Jitter, .8) -> RandomApply(Gray, .2)
   simclr_hq         = simclr + RandomApply(Blur, .5)
   simclr_hq_cutout  = simclr_hq + RandomApply(CutOut, .5)
+
+A trainer applies its augments through :func:`traced`, so that each
+outermost application is one ``aug`` phase of the train step
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from contrad_tpu_torch.augment.diffaug import DiffAugment
 from contrad_tpu_torch.augment.spatial import (
     CutOut, HFlipRandomCrop, HorizontalFlip, Params, RandomCrop,
     RandomResizeCrop, _uniform)
+from contrad_tpu_torch.utils.trace import phase
 
 
 @dataclasses.dataclass
@@ -76,6 +81,26 @@ class Compose:
         for stage, p in zip(self.stages, params):
             x = stage.apply(x, p)
         return x
+
+
+class Traced:
+    """``inner`` with each ``apply`` one ``aug`` phase; the stages inside it
+    (``Compose`` -> ``RandomApply`` -> ...) add no marks."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def sample(self, shape, rng):
+        return self.inner.sample(shape, rng)
+
+    def apply(self, x, params):
+        with phase("aug", x.device):
+            return self.inner.apply(x, params)
+
+
+def traced(augment):
+    """``augment`` as a :class:`Traced` (None stays None)."""
+    return None if augment is None else Traced(augment)
 
 
 # Default hyperparameters: reference configs/defaults/augment.gin.
@@ -134,6 +159,7 @@ def get_augment(mode: str = "none", params: Optional[Mapping] = None):
 
 
 __all__ = ["AugRng", "Compose", "RandomApply", "NoAugment", "get_augment",
+           "traced",
            "ColorJitter", "CutOut", "DiffAugment", "GaussianBlur",
            "GaussianNoise", "Grayscale", "HFlipRandomCrop", "HorizontalFlip",
            "RandomCrop", "RandomResizeCrop"]

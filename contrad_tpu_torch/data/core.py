@@ -49,6 +49,7 @@ import torch
 from contrad_tpu_torch import resolve_device
 from contrad_tpu_torch.data import native
 from contrad_tpu_torch.parallel.mesh import local_rows
+from contrad_tpu_torch.utils.trace import span
 
 Shard = Optional[Tuple[int, int]]
 
@@ -185,7 +186,7 @@ class PrefetchIterator:
     ``stats``: batches handed out, the worker's seconds gathering on the
     host, the copies' device milliseconds (of ``copies_timed`` copies, each
     read when its buffer is reused), and the consumer's seconds waiting for
-    a batch."""
+    a batch (while a profiler runs, the span ``contrad.data.wait``)."""
 
     supports_indexed = False
     path = "host-fed"
@@ -294,7 +295,8 @@ class PrefetchIterator:
         if self._thread is None:
             self._start()
         t0 = time.perf_counter()
-        item = self._q.get()
+        with span("contrad.data.wait"):
+            item = self._q.get()
         self.stats["wait_s"] += time.perf_counter() - t0
         if isinstance(item, BaseException):
             self._thread.join()

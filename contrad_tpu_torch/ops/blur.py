@@ -28,21 +28,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from contrad_tpu_torch.ops import device_constant
+from contrad_tpu_torch.ops import device_constant, nvcc
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "blur2d.cu"
-_BUILD_DIR = _PKG / "_build"
+_SOURCE = nvcc.CSRC / "blur2d.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TAPS = 4
 
@@ -149,30 +142,12 @@ def _taps_array(taps_v, taps_h):
 def build(verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/blur2d.cu`` (once per source hash) and load it."""
     global _library
-    if _library is not None:
-        return _library
-    source = _SOURCE.read_bytes()
-    target = _BUILD_DIR / f"libblur2d_{hashlib.sha1(source).hexdigest()[:12]}.so"
-    if not target.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), str(_SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose:
-            print(res.stderr.strip())
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
-    lib.blur2d_nhwc.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_PlanStruct),
-        ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
-    lib.blur2d_nhwc.restype = ctypes.c_int
-    _library = lib
-    return lib
+    if _library is None:
+        _library = nvcc.build(_SOURCE, {"blur2d_nhwc": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_PlanStruct),
+             ctypes.POINTER(ctypes.c_float), ctypes.c_void_p],
+            ctypes.c_int)}, verbose)
+    return _library
 
 
 def _out_size(size: int, k: int, pad: Tuple[int, int]) -> int:

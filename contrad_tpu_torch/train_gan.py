@@ -28,8 +28,11 @@ and ``--opt_grads`` set Adam's storage dtypes; the production
 configuration is all four at ``bf16``. ``--steps_per_dispatch K`` runs K
 steps a dispatch, as CUDA graph replays on the card (0, the default, picks
 the largest K <= 16 that divides every cadence; 1 is the eager step), and
-``--trace_steps N`` writes a torch.profiler trace of N steps under
-``<logdir>/profile`` (``utils/run.py::train``). ``--multihost`` joins a
+``--trace_steps N`` writes a torch.profiler trace under
+``<logdir>/profile`` of the run's own blocks (graph replays at its K on the
+card) up to the first block boundary at or after N steps, the step's
+phases marked on the device beside the loop's host spans
+(``utils/run.py::train``, ``utils/trace.py``). ``--multihost`` joins a
 world of processes, one per card (torchrun, or the ``CONTRAD_*``
 rendezvous of ``hostenv.spawn_world``; NCCL, or gloo with ``--device
 cpu``): each rank trains on its rows of the global batch and the step

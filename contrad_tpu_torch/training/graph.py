@@ -42,6 +42,13 @@ capture of its own.
     be captured: a gloo world runs the eager step (``utils/run.py``).
   * **No fallback.** A capture or a replay that fails raises; a block never
     quietly runs eager on the card.
+  * **Spans.** While a profiler runs, the host's work is spanned
+    (``utils/trace.py``): ``contrad.block.stage`` (packing a block's rows,
+    their pinned copy and the wait for the buffer's previous copy),
+    ``contrad.block.replay`` around each replay, and
+    ``contrad.graph.warmup`` and ``contrad.graph.capture``, each with the
+    step's ``kind``. The step's own phases are marked on the device inside
+    the graphs.
 
 A block of one step (a tail, a misaligned step, ``K = 1``), and every block
 on the CPU, runs eagerly through the same code: the plain version that the
@@ -59,6 +66,7 @@ import torch
 from contrad_tpu_torch.ops import blur
 from contrad_tpu_torch.parallel import collectives
 from contrad_tpu_torch.training.step import Metrics, StyleGAN2Trainer
+from contrad_tpu_torch.utils.trace import span
 
 WARMUP_STEPS = 2  # eager steps of a kind before its capture
 
@@ -184,18 +192,20 @@ class BlockRunner:
                 torch.cuda.Event()) for _ in range(2)]
         pinned, staged, copied = self._buffers[self._slot]
         self._slot ^= 1
-        copied.synchronize()  # this buffer's previous copy has finished
-        pinned[:k].copy_(torch.from_numpy(self._pack(idx_block, labels_block,
-                                                     ema)))
-        staged[:k].copy_(pinned[:k], non_blocking=True)
-        copied.record()
+        with span("contrad.block.stage"):
+            copied.synchronize()  # this buffer's previous copy has finished
+            pinned[:k].copy_(torch.from_numpy(
+                self._pack(idx_block, labels_block, ema)))
+            staged[:k].copy_(pinned[:k], non_blocking=True)
+            copied.record()
         for i in range(k):
             kind = "r1" if r1[i] else "plain"
             self._row.copy_(staged[i])
             if kind not in self._captured:
                 self._capture(kind)
             entry = self._captured[kind]
-            entry.graph.replay()
+            with span("contrad.block.replay", kind=kind):
+                entry.graph.replay()
             blur.blur2d.launches += entry.launches
             blur.blur2d.scalar_launches += entry.scalar
             for key, n in entry.collectives.items():
@@ -227,7 +237,8 @@ class BlockRunner:
         counts = [opt.count for opt in self._optimizers()]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with span("contrad.graph.warmup", kind=kind), \
+                torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
                 self._graph_step(kind)
         torch.cuda.current_stream().wait_stream(side)
@@ -239,7 +250,8 @@ class BlockRunner:
         graph.register_generator_state(trainer.rng.device)
         launches, scalar = blur.blur2d.launches, blur.blur2d.scalar_launches
         before = dict(collectives.counts)
-        with torch.cuda.graph(graph, pool=self._pool):
+        with span("contrad.graph.capture", kind=kind), torch.cuda.graph(
+                graph, pool=self._pool):
             outputs = self._graph_step(kind)
         captured = (blur.blur2d.launches - launches,
                     blur.blur2d.scalar_launches - scalar)

@@ -49,6 +49,12 @@ shared generator and keeps this rank's rows of each per-sample draw
 whole), the losses are global (``modes.py``), and the gradients are summed
 over the world before each optimiser steps. So the generator, the
 parameters, the optimisers and the metrics are the same on every rank.
+
+A step is cut into named phases (``utils/trace.py``): ``step`` around it
+all, ``d`` each D update, ``r1`` inside it, ``g`` the G update, ``aug``
+each application of an augment, and ``update`` each Adam update with its
+``u`` commit and the EMA. On the card each phase is marked by kernels that
+a CUDA graph of the step captures with the rest.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from contrad_tpu_torch import at_least_f32
-from contrad_tpu_torch.augment import AugRng
+from contrad_tpu_torch.augment import AugRng, traced
 from contrad_tpu_torch.models.stylegan2 import GStylegan2
 from contrad_tpu_torch.ops.spectral_norm import commit_u
 from contrad_tpu_torch.parallel import (
@@ -67,6 +73,7 @@ from contrad_tpu_torch.parallel import (
 from contrad_tpu_torch.parallel.mesh import local_rows
 from contrad_tpu_torch.training.modes import Draws, ModeCtx, draw_d, get_mode
 from contrad_tpu_torch.training.state import ScheduledAdam, ema_update
+from contrad_tpu_torch.utils.trace import phase
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -117,11 +124,12 @@ class GANTrainer:
         self.g_ema = (copy.deepcopy(generator).requires_grad_(False) if ema
                       else None)
         self.g_tx, self.d_tx = g_optimizer, d_optimizer
-        self.ctx = ModeCtx(augment, loss_type, temp, lbd_a, penalty, lbd, lbd2)
+        self.ctx = ModeCtx(traced(augment), loss_type, temp, lbd_a, penalty,
+                           lbd, lbd2)
         self.mode = get_mode(mode)
         self.loss_D, self.loss_G = self.mode.loss_D, self.mode.loss_G
         self.n_critic = n_critic
-        self.real_augment = real_augment
+        self.real_augment = traced(real_augment)
         # the step's image dtype: D's compute dtype (the JAX package's
         # image_dtype, step.py:144-147), else its parameters' (float32, or
         # float64 where the parity tests make the models double)
@@ -216,24 +224,39 @@ class GANTrainer:
         """One D update on ``images`` (labelled ``y_real`` for a conditional
         D) and fresh fakes (labelled ``y_gen``; G in train mode, its
         batch-norm statistics advancing); D's ``u`` committed."""
-        with torch.no_grad():
-            gen_images = self.generator(**g_draws, train=True)
-        total, metrics = self.loss_D(self.ctx, self.discriminator, images,
-                                     gen_images, draws, y_real, y_gen)
-        self.d_tx.step(_grads(total, self.discriminator))
-        commit_u(self.discriminator)
+        with phase("d", self.device):
+            with torch.no_grad():
+                gen_images = self.generator(**g_draws, train=True)
+            total, metrics = self.loss_D(self.ctx, self.discriminator, images,
+                                         gen_images, draws, y_real, y_gen)
+            grads = _grads(total, self.discriminator)
+        self.update(self.d_tx, grads)
         return metrics
 
     def g_update(self, g_draws: Dict[str, Any], aug_params, y_gen=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One G update against the current D, whose ``u`` advances;
         returns the loss and the (pre-update) fakes."""
-        gen_images = self.generator(**g_draws, train=True)
-        loss = self.loss_G(self.ctx, self.discriminator, gen_images,
-                           aug_params, y_gen)
-        self.g_tx.step(_grads(loss, self.generator))
-        commit_u(self.discriminator)
+        with phase("g", self.device):
+            gen_images = self.generator(**g_draws, train=True)
+            loss = self.loss_G(self.ctx, self.discriminator, gen_images,
+                               aug_params, y_gen)
+            grads = _grads(loss, self.generator)
+        self.update(self.g_tx, grads)
         return loss, gen_images
+
+    def update(self, tx: ScheduledAdam, grads) -> None:
+        """One Adam update of ``tx``'s parameters and D's ``u`` committed
+        (the ``update`` phase)."""
+        with phase("update", self.device):
+            tx.step(grads)
+            commit_u(self.discriminator)
+
+    def ema(self, decay: float | torch.Tensor) -> None:
+        """The EMA of G's parameters, its buffers copied (an ``update``
+        phase)."""
+        with phase("update", self.device):
+            ema_update(self.g_ema, self.generator, decay)
 
     # ------------------------------------------------------------- train
 
@@ -248,23 +271,24 @@ class GANTrainer:
         (a CUDA graph of the step reads each replay's there)."""
         if self.conditional and labels is None:
             raise ValueError("the discriminator has n_classes > 1: pass labels")
-        images = to_float(images, self.dtype)
-        if draws is None:
-            draws = self.draw_step(images.shape)
-        if self.real_augment is not None:
-            images = self.real_augment.apply(images, draws.real)
-        n = images.shape[0] // self.n_critic
-        y_real = (labels.split(n) if self.conditional
-                  else [None] * self.n_critic)
-        y_gen = draws.y_gen or [None] * (self.n_critic + 1)
-        for batch, (g_draws, d_draws), yr, yg in zip(
-                images.split(n), draws.critic, y_real, y_gen[:-1],
-                strict=True):
-            metrics = self.d_substep(batch, g_draws, d_draws, yr, yg)
-        metrics["G_loss"], _ = self.g_update(*draws.g, y_gen[-1])
-        if self.g_ema is not None:
-            ema_update(self.g_ema, self.generator, ema_decay)
-        return {k: v.detach() for k, v in metrics.items()}
+        with phase("step", self.device):
+            images = to_float(images, self.dtype)
+            if draws is None:
+                draws = self.draw_step(images.shape)
+            if self.real_augment is not None:
+                images = self.real_augment.apply(images, draws.real)
+            n = images.shape[0] // self.n_critic
+            y_real = (labels.split(n) if self.conditional
+                      else [None] * self.n_critic)
+            y_gen = draws.y_gen or [None] * (self.n_critic + 1)
+            for batch, (g_draws, d_draws), yr, yg in zip(
+                    images.split(n), draws.critic, y_real, y_gen[:-1],
+                    strict=True):
+                metrics = self.d_substep(batch, g_draws, d_draws, yr, yg)
+            metrics["G_loss"], _ = self.g_update(*draws.g, y_gen[-1])
+            if self.g_ema is not None:
+                self.ema(ema_decay)
+            return {k: v.detach() for k, v in metrics.items()}
 
 
 class StyleGAN2Trainer(GANTrainer):
@@ -303,12 +327,13 @@ class StyleGAN2Trainer(GANTrainer):
         """E[sum of squared grads of D(x) w.r.t. x] on augmented, detached
         reals (reference train_stylegan2.py:106-113), differentiable in D's
         parameters. The D pass does not persist D's state."""
-        x = self.ctx.augment.apply(images, aug_params).detach()
-        x.requires_grad_(True)
-        d, _ = self.discriminator(x, persist=False)
-        (grads,) = torch.autograd.grad(d.sum(), x, create_graph=True)
-        return gather_rows(at_least_f32(grads).reshape(x.shape[0], -1)
-                           .pow(2).sum(dim=1)).mean()
+        with phase("r1", self.device):
+            x = self.ctx.augment.apply(images, aug_params).detach()
+            x.requires_grad_(True)
+            d, _ = self.discriminator(x, persist=False)
+            (grads,) = torch.autograd.grad(d.sum(), x, create_graph=True)
+            return gather_rows(at_least_f32(grads).reshape(x.shape[0], -1)
+                               .pow(2).sum(dim=1)).mean()
 
     def d_loss(self, images, gen_images, draws: Draws,
                r1_aug_params: Optional[Any] = None
@@ -346,30 +371,33 @@ class StyleGAN2Trainer(GANTrainer):
         device: the last D sub-step's, R1 from the regularised pass, and
         ``G_loss``. R1 runs where the draws hold its augmentation: with
         ``draws`` None, where ``do_r1`` and ``lbd_r1 > 0``."""
-        images = to_float(images, self.dtype)
-        if draws is None:
-            draws = self.draw_step(images.shape,
-                                   with_r1=do_r1 and self.lbd_r1 > 0)
-        if self.real_augment is not None:
-            images = self.real_augment.apply(images, draws.real)
-        batches = images.split(images.shape[0] // self.n_critic)
+        with phase("step", self.device):
+            images = to_float(images, self.dtype)
+            if draws is None:
+                draws = self.draw_step(images.shape,
+                                       with_r1=do_r1 and self.lbd_r1 > 0)
+            if self.real_augment is not None:
+                images = self.real_augment.apply(images, draws.real)
+            batches = images.split(images.shape[0] // self.n_critic)
 
-        # 1. EMA with the pre-update parameters
-        ema_update(self.g_ema, self.generator, ema_decay)
+            # 1. EMA with the pre-update parameters
+            self.ema(ema_decay)
 
-        # 2. G phase
-        g_loss, gen_images = self.g_update(*draws.g)
+            # 2. G phase
+            g_loss, gen_images = self.g_update(*draws.g)
 
-        # 3. D phase on the G phase's fakes
-        (_, d_draws), *others = draws.critic
-        total, metrics = self.d_loss(batches[0], gen_images.detach(),
-                                     d_draws, draws.r1)
-        self.d_tx.step(_grads(total, self.discriminator))
-        commit_u(self.discriminator)
+            # 3. D phase on the G phase's fakes
+            (_, d_draws), *others = draws.critic
+            with phase("d", self.device):
+                total, metrics = self.d_loss(batches[0], gen_images.detach(),
+                                             d_draws, draws.r1)
+                grads = _grads(total, self.discriminator)
+            self.update(self.d_tx, grads)
 
-        # 4. the other critic steps, with fresh batches and fakes
-        for batch, (g_draws, d_draws) in zip(batches[1:], others, strict=True):
-            metrics = dict(self.d_substep(batch, g_draws, d_draws),
-                           D_r1=metrics["D_r1"])
-        metrics["G_loss"] = g_loss
-        return {k: v.detach() for k, v in metrics.items()}
+            # 4. the other critic steps, with fresh batches and fakes
+            for batch, (g_draws, d_draws) in zip(batches[1:], others,
+                                                 strict=True):
+                metrics = dict(self.d_substep(batch, g_draws, d_draws),
+                               D_r1=metrics["D_r1"])
+            metrics["G_loss"] = g_loss
+            return {k: v.detach() for k, v in metrics.items()}

@@ -51,6 +51,7 @@ from contrad_tpu_torch.parallel.mesh import backend
 from contrad_tpu_torch.utils.checkpoint import (
     find_restorable, has_checkpoint, restore_checkpoint, save_checkpoint)
 from contrad_tpu_torch.utils.logger import Logger, RankLogger
+from contrad_tpu_torch.utils.trace import span
 
 
 class History(list):
@@ -107,8 +108,11 @@ def add_run_args(p) -> None:
                         "disables (the eager step).")
     p.add_argument("--trace_steps", default=0, type=int,
                    help="Capture a torch.profiler trace (CPU and CUDA "
-                        "activity) of N steps, written to <logdir>/profile "
-                        "(view with tensorboard); runs the eager step")
+                        "activity) from the first step to the first block "
+                        "boundary at or after N steps, written to "
+                        "<logdir>/profile (view with tensorboard): the "
+                        "run's own blocks at its K, the step's phases "
+                        "marked on the device, the loop's host spans")
     p.add_argument("--multihost", action="store_true",
                    help="Join a world of processes, one per card (torchrun, "
                         "or CONTRAD_COORDINATOR / CONTRAD_NUM_PROCESSES / "
@@ -377,8 +381,9 @@ def evaluate(P, logger: Logger, history: History, trainer, loader, step: int,
         barrier()
         t1 = time.perf_counter()
         if writer:
-            save_checkpoint(logger.logdir,
-                            run_state(trainer, loader, step, meta), name)
+            with span("contrad.loop.save", ckpt=name):
+                save_checkpoint(logger.logdir,
+                                run_state(trainer, loader, step, meta), name)
         barrier()
         path = os.path.join(logger.logdir, "ckpt", f"{name}.pt")
         save = dict(name=name, step=step, bytes=os.path.getsize(path),
@@ -419,9 +424,12 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
     training.dispatch.BlockDispatcher`, run by :class:`~contrad_tpu_torch.
     training.graph.BlockRunner` (CUDA graphs on the card where K > 1); print,
     evaluate and save at their exact steps, reading the block's last step;
-    ``--trace_steps`` as a torch.profiler trace. ``step_args(steps)`` gives
-    the runner's per-step ``ema_decay`` and ``do_r1`` for an array of step
-    numbers. Returns the :class:`History`."""
+    ``--trace_steps N`` as a torch.profiler trace of the run's own blocks
+    from the first step to the first block boundary at or after N steps
+    (its loss read included, not its evaluation), with the loop's spans
+    (``contrad.loop.read``, ``.evaluate``, ``.save``; ``utils/trace.py``).
+    ``step_args(steps)`` gives the runner's per-step ``ema_decay`` and
+    ``do_r1`` for an array of step numbers. Returns the :class:`History`."""
     from contrad_tpu_torch.training.dispatch import (
         BlockDispatcher, resolve_steps_per_dispatch)
     from contrad_tpu_torch.training.graph import BlockRunner
@@ -435,9 +443,11 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
                    "the eager step)")
         k_dispatch = 1
     else:
+        # a trace takes the run's own K (0: no trace), so that it shows the
+        # graph replays the run makes
         k_dispatch = resolve_steps_per_dispatch(
             P.steps_per_dispatch, getattr(loader, "supports_indexed", False),
-            P.trace_steps, P.print_every, P.evaluate_every, P.save_every)
+            0, P.print_every, P.evaluate_every, P.save_every)
     dispatcher = BlockDispatcher(loader, k_dispatch, opt.max_steps)
     if k_dispatch > 1:
         logger.log(f"Multi-step dispatch: {k_dispatch} steps/program")
@@ -467,14 +477,10 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
         t0 += runner.take_setup_seconds()
         step += blk.k - 1  # `step` is now the block's LAST step
         steps += blk.k
-        if trace is not None and step == first + P.trace_steps:
-            sync()
-            trace.stop()
-            trace = None
-            logger.log(f"Profiler trace written to {logger.logdir}/profile")
         if step % P.print_every == 0:
-            m = {k: float(v) for k, v in metrics.items()}  # waits for the step
-            sync()
+            with span("contrad.loop.read", step=step):
+                m = {k: float(v) for k, v in metrics.items()}  # waits
+                sync()
             dt = time.perf_counter() - t0
             logger.log("[Steps %7d] [G %.3f] [D %.3f] [%.1f img/s]"
                        % (step, m["G_loss"], m["D_loss"], steps
@@ -485,9 +491,17 @@ def train(P, opt, trainer, loader, logger: Logger, evaluation: Evaluation,
                 logger.scalar_summary("gan/train/" + name, value, step)
             history.append(dict(m, step=step, seconds_per_step=dt / steps))
             t0, steps = time.perf_counter(), 0
+        if trace is not None and step - first + 1 >= P.trace_steps:
+            t1 = time.perf_counter()
+            sync()
+            trace.stop()
+            trace = None
+            logger.log(f"Profiler trace written to {logger.logdir}/profile")
+            t0 += time.perf_counter() - t1  # writing it is no step time
         if step % P.evaluate_every == 0:
-            t0 += evaluate(P, logger, history, trainer, loader, step, meta,
-                           evaluation, blk.materialize())
+            with span("contrad.loop.evaluate", step=step):
+                t0 += evaluate(P, logger, history, trainer, loader, step,
+                               meta, evaluation, blk.materialize())
         step += 1
     if trace is not None:  # the run ended inside the traced steps
         sync()

@@ -385,6 +385,108 @@ def test_a_capture_that_fails_raises(cuda):
         BlockRunner(trainer, loader).run(idx)
 
 
+def _phase_marks(plain: bool):
+    """The marks of a tiny StyleGAN2 + ContraD step (no real augment), in
+    order: "+name" a phase's begin, "-name" its end."""
+    d = ["+d", "+aug", "-aug"] + (
+        [] if plain else ["+r1", "+aug", "-aug", "-r1"]) + ["-d"]
+    return (["+step", "+update", "-update", "+g", "+aug", "-aug", "-g",
+             "+update", "-update"] + d + ["+update", "-update", "-step"])
+
+
+def _as_mark(name):
+    from contrad_tpu_torch.utils.trace import PHASES, mark_name
+
+    for p in PHASES:
+        for edge, sign in (("begin", "+"), ("end", "-")):
+            if name == mark_name(p, edge):
+                return sign + p
+    return None
+
+
+def test_a_replay_holds_the_phase_marks_in_order(cuda):
+    """A plain and an R1 step of a tiny StyleGAN2 trainer, captured, then
+    replayed under the profiler: the device trace holds each step's phase
+    marks in order, which ``benchmark/harness/phases.py`` reads as two
+    steps, the second with R1; the host's spans are host operators only
+    (none mirrored on the device's timeline)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness import phases
+    from benchmark.harness.trace import _events
+    from contrad_tpu_torch import train_stylegan2
+    from contrad_tpu_torch.training.graph import BlockRunner
+
+    loader, trainer = _tiny_trainer(train_stylegan2, [
+        "configs/gan/stylegan2/c10_style64.toml", "stylegan2_tiny", "--mode",
+        "contrad", "--aug", "simclr", "--lbd_r1", "0.1", "--d_reg_every",
+        "2"])
+    runner = BlockRunner(trainer, loader)
+    idx = [loader.next_indices()[0] for _ in range(4)]
+    runner.run(idx, do_r1=[False, True, False, True])  # captures both kinds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.run(idx[:2], do_r1=[False, True])
+        torch.cuda.synchronize()
+    events = sorted(_events(prof), key=lambda e: e[2])
+    device = [(n, s, e) for n, dev, s, e in events if dev]
+    marks = [m for m in (_as_mark(n) for n, _, _ in device) if m]
+    assert marks == _phase_marks(True) + _phase_marks(False)
+    p = phases.read([k for k in device if not k[0].startswith("Mem")])
+    assert [s["r1"] for s in p.steps] == [False, True]
+    assert p.marks == len(marks)
+    assert set(p.self_s) == {"step", "update", "g", "aug", "d", "r1"}
+    print("kernels outside the steps' phases:", p.unmarked_s, "s")
+    host = [n for n, dev, _, _ in events if not dev]
+    assert host.count("contrad.block.replay") == 2
+    assert host.count("contrad.block.stage") == 1
+    assert not [n for n, _, _ in device if n.startswith("contrad.")]
+
+
+def test_trace_steps_traces_graph_replays_with_marks_and_spans(
+        cuda, tmp_path):
+    """``--trace_steps 2`` of a tiny StyleGAN2 run on the card at K = 4:
+    one trace of the first block's warm-up, capture and graph replays, the
+    replays' phase marks and the host's spans on one clock (the loss read
+    ends after the last step's end mark)."""
+    import glob
+    import json
+    import os
+
+    from contrad_tpu_torch import train_stylegan2
+
+    history = train_stylegan2.main([
+        "configs/gan/stylegan2/c10_style64.toml", "stylegan2_tiny", "--mode",
+        "contrad", "--aug", "simclr", "--lbd_r1", "0.1", "--d_reg_every",
+        "2", "--print_every", "4", "--evaluate_every", "4", "--no_fid",
+        "--no_gif", "--trace_steps", "2", "--logdir_root", str(tmp_path),
+        "--override", "options.dataset=synthetic_16_64",
+        "options.batch_size=4", "options.max_steps=4"])
+    assert history.dispatch["k"] == 4
+    assert history.dispatch["stats"]["replays"] == {"plain": 2, "r1": 2}
+    (path,) = glob.glob(os.path.join(history.logdir, "profile", "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    marks = [m for m in (_as_mark(e["name"]) for e in kernels) if m]
+    # each kind's first step: 2 warm-up steps, eagerly, then its capture,
+    # which runs nothing, and its replay; then the block's last 2 replays
+    plain, r1 = _phase_marks(True), _phase_marks(False)
+    assert marks == 3 * plain + 3 * r1 + plain + r1
+    spans = {e["name"]: e for e in events
+             if e.get("name", "").startswith("contrad.")}
+    for name in ("contrad.block.replay", "contrad.block.stage",
+                 "contrad.graph.warmup", "contrad.graph.capture",
+                 "contrad.loop.read", "contrad.step"):
+        assert name in spans, name
+    assert spans["contrad.block.replay"]["cat"] == "cpu_op"
+    last = [e for e in kernels if e["name"] == "contrad_mark_step_end"][-1]
+    read = spans["contrad.loop.read"]
+    assert last["ts"] + last["dur"] <= read["ts"] + read["dur"]
+
+
 @pytest.mark.parametrize("which", ["stylegan2_tiny", "conditional_flagship"])
 def test_an_nccl_world_of_one_replays_bitwise_as_the_worldless_step(
         cuda, monkeypatch, which):

@@ -10,8 +10,10 @@ CPU, where a block runs its steps eagerly:
   * ``--resume`` at a block boundary of such a run continues it bit for
     bit (the printed metrics and every tensor of the final checkpoint);
   * ``--trace_steps 2`` writes a torch.profiler trace under
-    ``<logdir>/profile/`` and runs the eager step (K = 1), as the JAX CLIs
-    do.
+    ``<logdir>/profile/`` of the run's own first block of K = 4 steps (the
+    first block boundary at or after 2 steps), with each step's phases
+    (``contrad.step``, ``contrad.g``, ``contrad.d``, ``contrad.r1``,
+    ``contrad.update``) spanned in order, and the loss read at its end.
 
 ``stylegan2_tiny`` runs at 16 channels a layer here (as the JAX package's
 ``tests/test_stylegan2.py`` block test does): its checkpoints, written at
@@ -104,13 +106,24 @@ def test_resume_at_a_block_boundary_is_bitwise(cli, tmp_path):
 
 
 def test_trace_steps_writes_a_trace_and_runs_the_eager_step(tmp_path):
-    history = _run("train_stylegan2", tmp_path, 4, "--trace_steps", "2")
-    assert history.dispatch["k"] == 1
+    history = _run("train_stylegan2", tmp_path, 8, "--trace_steps", "2")
+    assert history.dispatch["k"] == 4  # the run's own K, trace or none
     log = _read(history, "log.txt")
     assert f"Profiler trace written to {history.logdir}/profile" in log
-    assert "Multi-step dispatch" not in log
+    assert "Multi-step dispatch: 4 steps/program" in log
     traces = glob.glob(os.path.join(history.logdir, "profile", "*.json"))
     assert len(traces) == 1
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    # the first block of 4 steps (a block boundary at or after 2 steps),
+    # each step's phases in order, then the loss read at step 4
+    spans = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+             if e.get("name", "").startswith("contrad.")]
+    step = ["contrad.step", "contrad.update", "contrad.g", "contrad.update",
+            "contrad.d", "contrad.update"]
+    r1 = step[:5] + ["contrad.r1", "contrad.update"]
+    kept = ("contrad.step", "contrad.d", "contrad.r1", "contrad.g",
+            "contrad.update", "contrad.loop.read")
+    assert [n for n in spans if n in kept] == (
+        step + r1 + step + r1 + ["contrad.loop.read"])
