@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``contrad_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--fused_act_only]
 
 Phases, in order; any failure ends the run with a non-zero exit code and no
 result line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written CUDA blur kernel (``contrad_tpu_torch/csrc``) from
-   the sources beside this script, and time the build;
+   the sources beside this script, and time the build; then the fused
+   activation's kernel;
 3. hold the blur kernel to its plain PyTorch version at every (shape, pad)
    that a train step of either StyleGAN2 path gives it, forward and
    adjoint (the 32x32 recipe at batch 64, the 512x512 recipe at batch 16),
@@ -206,7 +207,17 @@ result line:
    flagship at batch 512 for 20 steps evaluating FID@1000 at 10 and 20):
    exit 0 and a finite best FID from its trajectory; then
    ``precalc_stats --images`` on 256 PNGs that the phase writes, with the
-   InceptionV3 on phase 9's random weights, on the card against the CPU.
+   InceptionV3 on phase 9's random weights, on the card against the CPU;
+17. the fused bias + leaky ReLU + gain kernel (``csrc/fused_act.cu``) at
+   the 512x512 recipe's largest activated shapes, in both memory layouts,
+   and the style MLP's: modes act and grad (and grad with the gradient in
+   the other layout) against the plain op (out and dx bitwise, the bias
+   gradient within 1e-5 of sum|dx| of its float64 sum), then timed as
+   CUDA-graph replays beside the plain op's three kernels each way and the
+   byte bound; then its launches (and the blur's) in one eager step of
+   each kind of the 512x512 recipe at batch 16 and the 32x32 recipe at
+   batch 64, none on the scalar path. ``--fused_act_only`` runs phases 1,
+   2 and 17 alone.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -962,12 +973,15 @@ class KeepGrads:
 
 class LeakyBranches:
     """The branches of every leaky ReLU in a step (``F.leaky_relu``, which
-    the StyleGAN2 models' fused bias + leaky ReLU calls), call by call.
-    Under ``record()`` each call keeps which elements take the identity
-    branch (``x > 0``) and its pre-activations within ``MODEL_TOL`` of 0;
-    under ``impose()`` each call takes the recorded branches instead of its
-    own, and every element whose own branch differs is listed in ``flips``
-    with its pre-activation on both devices."""
+    the StyleGAN2 models' fused bias + leaky ReLU calls in its plain op),
+    call by call. Under ``record()`` each call keeps which elements take the
+    identity branch (``x > 0``) and its pre-activations within ``MODEL_TOL``
+    of 0; under ``impose()`` each call takes the recorded branches instead
+    of its own, and every element whose own branch differs is listed in
+    ``flips`` with its pre-activation on both devices. While either runs,
+    the fused activation runs its plain op on the card too (its kernel
+    takes its own branches, and equals the plain op bitwise in its forward
+    and input gradient: ``tests/test_torch_port_cuda.py``)."""
 
     def __init__(self):
         self.calls, self.flips = [], []
@@ -984,13 +998,20 @@ class LeakyBranches:
     def _patched(self, fn):
         import torch.nn.functional as F
 
+        from contrad_tpu_torch.models.stylegan2 import layers
+        from contrad_tpu_torch.ops import fused_act
+
         plain = F.leaky_relu
+        kernel = fused_act.fused_leaky_relu
         F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: fn(
             plain, x, negative_slope)
+        fused_act.fused_leaky_relu = layers.fused_leaky_relu = \
+            fused_act.fused_leaky_relu_plain
         try:
             yield self
         finally:
             F.leaky_relu = plain
+            fused_act.fused_leaky_relu = layers.fused_leaky_relu = kernel
         if fn == self._impose and self._next != len(self.calls):
             raise AssertionError(f"{self._next} leaky ReLUs imposed, "
                                  f"{len(self.calls)} recorded")
@@ -3026,6 +3047,201 @@ def data_phase(per_step) -> dict:
     return out
 
 
+# ------------------------------------------------------- fused activation
+
+# the 512x512 recipe's largest activated tensors (D's 512x512 level at the D
+# phase's 48 images and G's at 16, D's 256x256 level at 48), each in both
+# memory layouts (channel planes: NCHW memory), and the style MLP's rows
+ACT_SHAPES = [(48, 512, 512, 32), (16, 512, 512, 32), (48, 256, 256, 64),
+              (16, 512)]
+ACT_GAIN = math.sqrt(2.0)
+ACT_SLOPE = 0.2
+
+
+def plain_act_grad(dy, t):
+    """The kernels autograd runs for the plain op's backward: the gain's
+    product, the leaky ReLU's backward on the saved ``x + b``, the bias
+    sum."""
+    import torch
+
+    dx = torch.ops.aten.leaky_relu_backward(dy * ACT_GAIN, t, ACT_SLOPE,
+                                            False)
+    return dx, dx.reshape(-1, dx.shape[-1]).sum(0)
+
+
+def time_fused_act(fused_act) -> list:
+    """Per shape and memory layout (float32): the kernel's modes act and
+    grad (with the bias gradient; 4-D shapes also with dy in the other
+    layout, the transposing path) checked against the plain op (out and dx
+    bitwise, db within 1e-5 * sum|dx| of the float64 sum), then timed as
+    CUDA-graph replays beside the plain op's three kernels each way and the
+    byte bound at 3.35 TB/s (act: x in, out out; grad: dy and out in, dx
+    out)."""
+    import torch
+
+    rows = []
+    for shape, planes in [(s, p) for s in ACT_SHAPES
+                          for p in ((False, True) if len(s) > 2 else (False,))]:
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        b = torch.randn(shape[-1], generator=gen, device="cuda")
+        dy = torch.randn(shape, generator=gen, device="cuda")
+        if planes:  # NCHW memory
+            x, dy = (a.movedim(-1, 1).contiguous().movedim(1, -1)
+                     for a in (x, dy))
+        t = x + b
+        out = fused_act.fused_leaky_relu(x, b)
+        if not torch.equal(out, fused_act.fused_leaky_relu_plain(x, b)):
+            raise AssertionError(f"fused activation {shape}: out differs")
+        pdx, _ = plain_act_grad(dy, t)
+        exact = pdx.double().reshape(-1, shape[-1])
+        other = (dy.movedim(-1, 1).contiguous().movedim(1, -1) if not planes
+                 else dy.contiguous()) if len(shape) > 2 else None
+        db_err = 0.0
+        for g in (dy, other):
+            if g is None:
+                continue
+            dx, db = fused_act._grad(g, None, out, ACT_SLOPE, ACT_GAIN, True)
+            if not torch.equal(dx, pdx):
+                raise AssertionError(f"fused activation {shape}: dx differs")
+            db_err = max(db_err, float(((db.double() - exact.sum(0)).abs()
+                                        / exact.abs().sum(0)).max()))
+            del dx
+        if db_err > 1e-5:
+            raise AssertionError(f"fused activation {shape}: db off by "
+                                 f"{db_err:.2e} of sum|dx|")
+        nbytes = x.numel() * x.element_size()
+        iters = 20 if nbytes > 1e8 else 200
+        ms = dict(
+            act=cuda_ms(lambda a: fused_act._act(a, b, ACT_SLOPE, ACT_GAIN),
+                        [x], iters, graph=True),
+            grad=cuda_ms(lambda g: fused_act._grad(g, None, out, ACT_SLOPE,
+                                                   ACT_GAIN, True),
+                         [dy], iters, graph=True),
+            plain_act=cuda_ms(lambda a: fused_act.fused_leaky_relu_plain(
+                a, b), [x], iters, graph=True),
+            plain_grad=cuda_ms(lambda g: plain_act_grad(g, t), [dy], iters,
+                               graph=True))
+        if other is not None:
+            ms.update(
+                grad_other=cuda_ms(lambda g: fused_act._grad(
+                    g, None, out, ACT_SLOPE, ACT_GAIN, True), [other], iters,
+                    graph=True),
+                plain_grad_other=cuda_ms(lambda g: plain_act_grad(g, t),
+                                         [other], iters, graph=True))
+        bound = dict(act=2e3 * nbytes / HBM_BYTES_PER_S,
+                     grad=3e3 * nbytes / HBM_BYTES_PER_S)
+        if other is not None:
+            bound["grad_other"] = bound["grad"]
+        row = dict(shape=list(shape), planes=planes, mb=nbytes / 1e6,
+                   db_rel_err=db_err,
+                   **{f"{k}_ms": v for k, v in ms.items()},
+                   **{f"{k}_bound_ms": v for k, v in bound.items()},
+                   **{f"{k}_pct_of_bound": 100 * bound[k] / ms[k]
+                      for k in bound})
+        rows.append(row)
+        log(f"  {tuple(shape)} {'planes' if planes else 'rows'} "
+            f"({row['mb']:.1f} MB): act "
+            f"{ms['act']:.4f} ms ({row['act_pct_of_bound']:.1f} % of "
+            f"{bound['act']:.4f}; plain {ms['plain_act']:.4f}), grad "
+            f"{ms['grad']:.4f} ms ({row['grad_pct_of_bound']:.1f} % of "
+            f"{bound['grad']:.4f}; plain {ms['plain_grad']:.4f})"
+            + (f", grad with dy in the other layout {ms['grad_other']:.4f} "
+               f"ms ({row['grad_other_pct_of_bound']:.1f} %; plain "
+               f"{ms['plain_grad_other']:.4f})" if other is not None else "")
+            + f"; db {db_err:.2e} of sum|dx|")
+        del x, dy, t, out, pdx, exact, other
+        torch.cuda.empty_cache()
+    return rows
+
+
+def act_launches_per_step(fused_act) -> dict:
+    """The fused activation's launches (and the blur's) in one eager step
+    of each kind of the 512x512 recipe at batch 16 and the 32x32 recipe at
+    batch 64, through the CLI's ``build`` on small synthetic sets, with the
+    bytes each memory layout and mode moves; none may take the scalar
+    path."""
+    import torch
+
+    from contrad_tpu_torch import train_stylegan2
+    from contrad_tpu_torch.ops import blur
+
+    counter = fused_act.fused_leaky_relu
+    out = {}
+    seen = []
+    launch = fused_act._launch
+
+    def recording(mode, x, b, ref, *args):
+        seen.append((mode, fused_act._layout(x)[2] > 1,
+                     ref is not None and fused_act._layout(ref)
+                     != fused_act._layout(x), x.numel() * x.element_size()))
+        return launch(mode, x, b, ref, *args)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for training
+    for name, recipe, dataset, batch in (
+            ("stylegan2_512", RECIPE_512, "synthetic_512_64", BATCH_512),
+            ("stylegan2_32", RECIPE, "synthetic_32_256", BATCH)):
+        P = train_stylegan2.parse_args(recipe + [
+            "--override", f"options.dataset={dataset}",
+            f"options.batch_size={batch}"])
+        _, loader, trainer = train_stylegan2.build(P)
+        idx = loader.next_indices()[0]
+        for kind, flag in (("plain", False), ("r1", True)):
+            before = (counter.launches, counter.scalar_launches,
+                      blur.blur2d.launches)
+            seen.clear()
+            fused_act._launch = recording
+            try:
+                trainer.train_step(loader.materialize(idx), do_r1=flag)
+            finally:
+                fused_act._launch = launch
+            torch.cuda.synchronize()
+            mb = {}
+            for mode, planes, other, nbytes in seen:
+                key = (f"{'grad' if mode else 'act'} "
+                       f"{'planes' if planes else 'rows'}"
+                       f"{' to the other layout' if other else ''}")
+                mb[key] = mb.get(key, 0.0) + nbytes / 1e6
+            got = dict(launches=counter.launches - before[0],
+                       scalar=counter.scalar_launches - before[1],
+                       blur=blur.blur2d.launches - before[2],
+                       calls=len(seen), input_mb_by_mode_and_layout=mb)
+            if got["scalar"]:
+                raise AssertionError(f"{name} {kind}: {got['scalar']} fused "
+                                     f"activation launches took the scalar "
+                                     f"path")
+            out[f"{name} {kind}"] = got
+            log(f"  {name} {kind} step: {got['launches']} fused activation "
+                f"launches ({got['calls']} calls), {got['blur']} blur "
+                f"launches; MB in by mode and layout: "
+                + ", ".join(f"{k} {v:.0f}" for k, v in sorted(mb.items())))
+        del loader, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_act_phase(fused_act) -> dict:
+    """Phase 17: the fused activation kernel's check and times at the main
+    path's largest shapes, and its launches a step."""
+    t0 = time.perf_counter()
+    phase("[17] the fused bias + leaky ReLU + gain kernel: checks and times "
+          "at the 512x512 recipe's shapes, launches a step")
+    rows = time_fused_act(fused_act)
+    launches = act_launches_per_step(fused_act)
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    big = max(rows, key=lambda r: (r["mb"], r["planes"]))
+    return dict(rows=rows, launches_per_step=launches, kernel={
+        "name": "fused_leaky_relu", "route": "cuda",
+        "source": "contrad_tpu_torch/csrc/fused_act.cu",
+        "replaces": None, "shape": big["shape"], "planes": big["planes"],
+        "ms": {"act": big["act_ms"], "grad": big["grad_ms"]},
+        "bound_ms": {"act": big["act_bound_ms"],
+                     "grad": big["grad_bound_ms"]},
+        "bound_by": "bytes",
+        "plain_ms": {"act": big["plain_act_ms"],
+                     "grad": big["plain_grad_ms"]},
+        "launches_per_step": {k: v["launches"]
+                              for k, v in launches.items()}})
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------------- the packed layout
@@ -3720,6 +3936,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--fused_act_only", action="store_true",
+                    help="run phases 1, 2 and 17 alone")
     args = ap.parse_args()
 
     import torch
@@ -3755,7 +3973,7 @@ def run_phases(args, drawing: dict) -> int:
     """Phases 1-16 (``main`` starts the dataset draw and stops it)."""
     import torch
 
-    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.ops import blur, fused_act
 
     card = card_line()
     phase(f"[1] card: {card}")
@@ -3765,6 +3983,23 @@ def run_phases(args, drawing: dict) -> int:
     blur.build(verbose=True)
     build_s = time.perf_counter() - t0
     phase(f"[2] built the blur kernel in {build_s:.2f} s")
+    t0 = time.perf_counter()
+    fused_act.build(verbose=True)
+    act_build_s = time.perf_counter() - t0
+    phase(f"  built the fused activation kernel in {act_build_s:.2f} s")
+    if args.fused_act_only:
+        phase17 = fused_act_phase(fused_act)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(dict(
+                card=card, kind=kind, act_build_s=act_build_s,
+                fused_act=phase17), indent=1, default=str))
+        print(json.dumps({"kernels": [phase17["kernel"]]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3879,6 +4114,7 @@ def run_phases(args, drawing: dict) -> int:
             ("bfloat16", phase11["times"]["stylegan2_512 bf16"]["graph"]))})
     phase15 = variants_phase()
     phase16 = runbook_phase()
+    phase17 = fused_act_phase(fused_act)
 
     big = max((r for r in rows if r["dtype"] == "float32"),
               key=lambda r: r["bytes"])
@@ -3924,7 +4160,8 @@ def run_phases(args, drawing: dict) -> int:
             **{f"{name} (phase 15)": n
                for name, n in phase15["launches"].items()}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
-                                  sndcgan_conditional=0)}]
+                                  sndcgan_conditional=0)},
+        phase17["kernel"]]
     total_s = time.perf_counter() - T0
     log(f"whole run: {total_s:.1f} s")
     if args.out is not None:
@@ -3944,7 +4181,8 @@ def run_phases(args, drawing: dict) -> int:
                                card_vs_cpu=check512),
             evaluation=phase8, inception=phase9, bf16=phase10,
             graphs=phase11, worlds=phase12, data_paths=phase13,
-            packed=phase14, variants=phase15, runbook=phase16),
+            packed=phase14, variants=phase15, runbook=phase16,
+            act_build_s=act_build_s, fused_act=phase17),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

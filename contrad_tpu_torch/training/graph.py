@@ -28,11 +28,13 @@ capture of its own.
     cached constants happen there, not under capture), from a snapshot of
     the whole trainer state (``state_dict``: G, D, EMA, ``u``, batch-norm
     statistics, Adam's moments and count, the generator), which is then
-    restored bitwise: warm-up trains nothing. Their blur launches are real
-    and counted.
-  * **Counts.** A capture launches nothing: the blur launches it recorded
-    are taken off ``blur2d.launches`` and added back at each replay, as are
-    the collectives of a world (``parallel.collectives.counts``), and the
+    restored bitwise: warm-up trains nothing. Their kernel launches are
+    real and counted.
+  * **Counts.** A capture launches nothing: the launches of the blur and of
+    the fused activation it recorded are taken off their counters
+    (``blur2d.launches``, ``fused_leaky_relu.launches`` and their
+    ``scalar_launches``) and added back at each replay, as are the
+    collectives of a world (``parallel.collectives.counts``), and the
     optimisers' host counts advance by each replay's updates (the device
     counts advance inside the graph).
   * **Worlds.** Under NCCL a step's collectives (the gathers of the global
@@ -63,12 +65,18 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from contrad_tpu_torch.ops import blur
+from contrad_tpu_torch.ops import blur, fused_act
 from contrad_tpu_torch.parallel import collectives
 from contrad_tpu_torch.training.step import Metrics, StyleGAN2Trainer
 from contrad_tpu_torch.utils.trace import span
 
 WARMUP_STEPS = 2  # eager steps of a kind before its capture
+# the hand-written kernels' wrappers, whose launch counters a replay advances
+COUNTED = (blur.blur2d, fused_act.fused_leaky_relu)
+
+
+def _launch_counts():
+    return [(op.launches, op.scalar_launches) for op in COUNTED]
 
 
 def _clone(tree):
@@ -84,12 +92,13 @@ def _clone(tree):
 
 class _Captured:
     """One step kind's graph, its static outputs (the step's metrics), the
-    blur launches it holds and each optimiser's updates in one replay."""
+    launches it holds of each ``COUNTED`` kernel (all, scalar path) and each
+    optimiser's updates in one replay."""
 
-    def __init__(self, graph, outputs: Metrics, launches: int, scalar: int,
-                 updates: Sequence[int], collectives: Dict[str, int]):
+    def __init__(self, graph, outputs: Metrics, counts, updates: Sequence[int],
+                 collectives: Dict[str, int]):
         self.graph, self.outputs = graph, outputs
-        self.launches, self.scalar, self.updates = launches, scalar, updates
+        self.counts, self.updates = counts, updates
         self.collectives = collectives
 
 
@@ -206,14 +215,15 @@ class BlockRunner:
             entry = self._captured[kind]
             with span("contrad.block.replay", kind=kind):
                 entry.graph.replay()
-            blur.blur2d.launches += entry.launches
-            blur.blur2d.scalar_launches += entry.scalar
+            for op, (n, scalar) in zip(COUNTED, entry.counts):
+                op.launches += n
+                op.scalar_launches += scalar
             for key, n in entry.collectives.items():
                 collectives.counts[key] += n
             for opt, n in zip(self._optimizers(), entry.updates):
                 opt.count += n
             self.stats["replays"][kind] = self.stats["replays"].get(kind, 0) + 1
-            self.stats["replay_launches"] += entry.launches
+            self.stats["replay_launches"] += entry.counts[0][0]
         return {name: v.clone() for name, v in entry.outputs.items()}
 
     def _optimizers(self):
@@ -248,22 +258,23 @@ class BlockRunner:
         del snapshot
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(trainer.rng.device)
-        launches, scalar = blur.blur2d.launches, blur.blur2d.scalar_launches
+        launched = _launch_counts()
         before = dict(collectives.counts)
         with span("contrad.graph.capture", kind=kind), torch.cuda.graph(
                 graph, pool=self._pool):
             outputs = self._graph_step(kind)
-        captured = (blur.blur2d.launches - launches,
-                    blur.blur2d.scalar_launches - scalar)
-        blur.blur2d.launches, blur.blur2d.scalar_launches = launches, scalar
+        captured = [(n - n0, s - s0) for (n, s), (n0, s0)
+                    in zip(_launch_counts(), launched)]
+        for op, (n0, s0) in zip(COUNTED, launched):
+            op.launches, op.scalar_launches = n0, s0
         held = {k: collectives.counts[k] - v for k, v in before.items()}
         collectives.counts.update(before)
         if self._pool is None:
             self._pool = graph.pool()
-        self._captured[kind] = _Captured(graph, outputs, *captured, updates,
+        self._captured[kind] = _Captured(graph, outputs, captured, updates,
                                          held)
         seconds = time.perf_counter() - t0
         self._setup_seconds += seconds
         self.stats["capture_seconds"][kind] = seconds
-        self.stats["captured_launches"][kind] = captured[0]
+        self.stats["captured_launches"][kind] = captured[0][0]
         self.stats["captured_collectives"][kind] = held

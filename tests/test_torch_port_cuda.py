@@ -4,8 +4,11 @@ pack where C * itemsize % 16 != 0 or the data is not 16-byte aligned; strips
 that do not divide the height; rows wider than one block; asymmetric pads;
 1 to 4 taps; the 512x512 recipe's largest tensors), under a CUDA graph, and
 the StyleGAN2 G and D going through it, ``SkipDiscriminator`` too; the
-packed convolutions of ``ops/packed.py`` against the unpacked ones. Every test here needs a CUDA card
-and skips without one (the kernel has no CPU mode). The file imports
+packed convolutions of ``ops/packed.py`` against the unpacked ones; the
+fused bias + leaky-ReLU + gain kernel against its plain op (both paths,
+float32 and bfloat16, the 512x512 recipe's shapes, an R1 penalty through D,
+graph replays). Every test here needs a CUDA card
+and skips without one (the kernels have no CPU mode). The file imports
 nothing of JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -14,14 +17,18 @@ Tolerances: float32 with TF32 off, 8 taps summed in another order,
 rtol 1e-5 / atol 1e-5; bfloat16 outputs rounded once from float32 in both
 versions, one bfloat16 ulp apart at most, rtol 1e-2 / atol 1e-2; the models
 on the card vs on the CPU, float32 convs in other orders, rtol 1e-4 /
-atol 1e-4."""
+atol 1e-4. The fused activation: float32 outputs and input gradients
+bitwise (the plain op's operations in its order); its bias gradient, a
+float32 sum in another order, within 1e-5 * sum|dx| of the float64 sum;
+bfloat16 likewise bitwise, the bias gradient within its own rounding
+besides."""
 
 import copy
 
 import pytest
 import torch
 
-from contrad_tpu_torch.ops import blur
+from contrad_tpu_torch.ops import blur, fused_act
 from contrad_tpu_torch.ops.upfirdn2d import blur_taps, make_kernel
 
 pytestmark = pytest.mark.cuda
@@ -645,3 +652,234 @@ def test_skip_discriminator_goes_through_the_kernel(cuda):
     assert blur.blur2d.launches == before + 2 * blurs
     for a, b in zip(got, run(d, "cpu")):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- fused activation
+
+GAIN = 2.0 ** 0.5
+
+
+def _act_inputs(shape, dtype, device, seed=0, planes=False):
+    """x, b, dy; with ``planes`` x and dy in NCHW memory (channel planes)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape):
+        if planes:
+            shape = (shape[0], shape[-1], *shape[1:-1])
+        t = torch.randn(shape, generator=gen, device=device).to(dtype)
+        return t.movedim(1, -1) if planes else t
+
+    x = draw(shape)
+    b = torch.randn(shape[-1], generator=gen, device=device).to(dtype)
+    return x, b, draw(shape)
+
+
+def _vector_path(x):
+    plan = fused_act.launch_plan(*fused_act._layout(x), x.dtype,
+                                 fused_act.ACT, True, False)
+    return bool(plan.vector)
+
+
+def _act_grads(fn, x, b, dy):
+    """out, dx, db of ``fn`` through autograd."""
+    xx, bb = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    out = fn(xx, bb)
+    return (out.detach(), *torch.autograd.grad(out, (xx, bb), dy))
+
+
+def _check_bias_grad(db, dx):
+    """db within 1e-5 * sum|dx| of dx's float64 sum over rows, each channel,
+    and in bfloat16 its rounding besides (2^-8 of the sum)."""
+    rows = dx.double().reshape(-1, dx.shape[-1])
+    exact = rows.sum(0)
+    err = (db.double() - exact).abs()
+    rounding = 2.0**-8 if db.dtype == torch.bfloat16 else 0.0
+    assert bool((err <= 1e-5 * rows.abs().sum(0) + rounding * exact.abs()
+                 + 1e-30).all()), float(err.max())
+
+
+# (shape, channel planes): both memory layouts of the 4-D shapes
+ACT_CASES = [(s, p) for s in [
+    (3, 17, 9, 37),  # odd C (rows) and odd planes: one value a pack
+    (2, 9, 9, 512),  # 9x9 planes: one value a pack
+    (4, 32, 32, 128),
+    (48, 16, 16, 32)] for p in (False, True)] + [
+    ((16, 512), False),  # the style MLP
+    ((3, 1536), False)]  # 384 packs: two blocks across a row
+
+
+@pytest.mark.parametrize("shape,planes", ACT_CASES)
+def test_fused_act_matches_the_plain_op_bitwise_in_float32(cuda, shape,
+                                                           planes):
+    x, b, dy = _act_inputs(shape, torch.float32, cuda, planes=planes)
+    vector = _vector_path(x)
+    launches = fused_act.fused_leaky_relu.launches
+    scalar = fused_act.fused_leaky_relu.scalar_launches
+    got = _act_grads(fused_act.fused_leaky_relu, x, b, dy)
+    torch.cuda.synchronize()
+    assert fused_act.fused_leaky_relu.launches == launches + 3
+    assert (fused_act.fused_leaky_relu.scalar_launches
+            == scalar + (0 if vector else 2))
+    assert got[0].stride() == x.stride()  # the layout kept
+    want = _act_grads(fused_act.fused_leaky_relu_plain, x, b, dy)
+    assert fused_act.fused_leaky_relu.launches == launches + 3
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _check_bias_grad(got[2], want[1])
+    again = _act_grads(fused_act.fused_leaky_relu, x, b, dy)
+    for a, c in zip(got, again):  # run to run, the bias gradient too
+        assert torch.equal(a, c)
+    # a gradient in the other layout than the output's: the transposing
+    # path, dx in the output's layout
+    if len(shape) > 2:
+        other = _act_grads(fused_act.fused_leaky_relu, x, b, dy.contiguous()
+                           if planes else dy.movedim(-1, 1).contiguous()
+                           .movedim(1, -1))
+        assert other[1].stride() == x.stride()
+        assert torch.equal(other[0], want[0])
+        assert torch.equal(other[1], want[1])
+        _check_bias_grad(other[2], want[1])
+    # no bias
+    assert torch.equal(fused_act.fused_leaky_relu(x),
+                       fused_act.fused_leaky_relu_plain(x))
+
+
+@pytest.mark.parametrize("shape,planes", [
+    ((3, 17, 9, 37), False), ((3, 17, 9, 37), True),
+    ((4, 32, 32, 128), False), ((4, 32, 32, 128), True),
+    ((16, 512), False), ((5, 3, 24), False), ((5, 3, 24), True)])
+def test_fused_act_in_bfloat16(cuda, shape, planes):
+    """bfloat16: out and dx bitwise the plain op (each operator's result
+    rounded as PyTorch rounds it), with dy in either layout; the bias
+    gradient, the plain op's sum of the same dx in another order, within
+    1e-5 * sum|dx| of the float64 sum and its own rounding."""
+    x, b, dy = _act_inputs(shape, torch.bfloat16, cuda, seed=1,
+                           planes=planes)
+    out, dx, db = _act_grads(fused_act.fused_leaky_relu, x, b, dy)
+    assert out.dtype == dx.dtype == db.dtype == torch.bfloat16
+    plain = _act_grads(fused_act.fused_leaky_relu_plain, x, b, dy)
+    assert torch.equal(out, plain[0]) and torch.equal(dx, plain[1])
+    _check_bias_grad(db, dx)
+    if len(shape) > 2:  # the gradient in the other layout
+        other = dy.contiguous() if planes else dy.movedim(-1, 1).contiguous(
+        ).movedim(1, -1)
+        assert torch.equal(_act_grads(fused_act.fused_leaky_relu, x, b,
+                                      other)[1], dx)
+
+
+def test_fused_act_refuses_what_it_does_not_take(cuda):
+    launches = fused_act.fused_leaky_relu.launches
+    x = torch.zeros(2, 4, 4, 8, device=cuda)
+    with pytest.raises(TypeError):
+        fused_act.fused_leaky_relu(x.half(), torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError):  # every second channel
+        fused_act.fused_leaky_relu(x[..., ::2], torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError):
+        fused_act.fused_leaky_relu(x, torch.zeros(4, device=cuda))
+    assert fused_act.fused_leaky_relu.launches == launches
+    empty = fused_act.fused_leaky_relu(torch.zeros(0, 8, device=cuda),
+                                       torch.zeros(8, device=cuda))
+    assert empty.shape == (0, 8)
+    assert fused_act.fused_leaky_relu.launches == launches
+
+
+@pytest.mark.parametrize("shape,planes,grad_rows", [
+    ((48, 512, 512, 32), True, False), ((48, 512, 512, 32), False, False),
+    ((48, 512, 512, 32), True, True), ((16, 512, 512, 32), False, False),
+    ((48, 256, 256, 64), True, False), ((16, 512), False, False)])
+def test_fused_act_at_the_512_recipes_shapes(cuda, shape, planes, grad_rows):
+    """The main path's largest activations (D's 512x512 level at the D
+    phase's 48 images, G's at 16, D's 256x256 level), in either memory
+    layout, and the style MLP take the 16-byte path, forward and backward
+    (D's 512x512 planes also with the gradient a blur's adjoint gives them,
+    channels innermost: the transposing path), and match the plain op to
+    the far end of the tensor."""
+    x, b, dy = _act_inputs(shape, torch.float32, cuda, seed=2, planes=planes)
+    if grad_rows:
+        dy = dy.contiguous()
+    scalar = fused_act.fused_leaky_relu.scalar_launches
+    got = _act_grads(fused_act.fused_leaky_relu, x, b, dy)
+    torch.cuda.synchronize()
+    assert fused_act.fused_leaky_relu.scalar_launches == scalar
+    want = _act_grads(fused_act.fused_leaky_relu_plain, x, b, dy)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _check_bias_grad(got[2], want[1])
+
+
+def _r1(D, x, act):
+    """R1's penalty through ``D`` and its gradient in D's parameters, with
+    ``act`` as every StyleGAN2 activation."""
+    from contrad_tpu_torch.models.stylegan2 import layers
+
+    saved = fused_act.fused_leaky_relu, layers.fused_leaky_relu
+    fused_act.fused_leaky_relu = layers.fused_leaky_relu = act
+    try:
+        xx = x.clone().requires_grad_(True)
+        d, _ = D(xx, persist=False)
+        (g,) = torch.autograd.grad(d.sum(), xx, create_graph=True)
+        r1 = g.pow(2).sum()
+        params = [p for p in D.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(r1, params, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        fused_act.fused_leaky_relu, layers.fused_leaky_relu = saved
+    return [r1.detach()] + list(grads)
+
+
+def test_r1_through_a_32x32_d_matches_the_plain_op(cuda):
+    """R1 at 32x32 (``DStylegan2``, batch 8, TF32 off, cuDNN
+    deterministic): the penalty and every parameter's gradient through the
+    kernel (forward, backward, double backward) against the plain op,
+    within 1e-4 * max + 1e-6 (the bias gradients and the double backward's
+    gain and slope multiply in other orders)."""
+    from contrad_tpu_torch.models.stylegan2 import DStylegan2
+
+    torch.manual_seed(0)
+    D = DStylegan2(32, mlp_linear=True).to(cuda)
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = fused_act.fused_leaky_relu.launches
+        got = _r1(D, x, fused_act.fused_leaky_relu)
+        assert fused_act.fused_leaky_relu.launches > launches
+        launches = fused_act.fused_leaky_relu.launches
+        want = _r1(D, x, fused_act.fused_leaky_relu_plain)
+        assert fused_act.fused_leaky_relu.launches == launches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert float(want[0]) > 0
+    for a, c in zip(got, want):
+        assert float((a - c).abs().max()) <= 1e-4 * float(
+            c.abs().max()) + 1e-6
+
+
+def test_graph_replays_count_the_fused_activation(cuda):
+    """A block of four tiny StyleGAN2 + ContraD steps (R1 every second) as
+    graph replays: the fused activation's counters advance by each step
+    kind's launches at every replay, and by the warm-up steps'."""
+    from contrad_tpu_torch import train_stylegan2
+    from contrad_tpu_torch.training.graph import WARMUP_STEPS, BlockRunner
+
+    loader, trainer = _tiny_trainer(train_stylegan2, [
+        "configs/gan/stylegan2/c10_style64.toml", "stylegan2_tiny", "--mode",
+        "contrad", "--aug", "simclr", "--lbd_r1", "0.1", "--d_reg_every", "2",
+        "--use_warmup"])
+    counter = fused_act.fused_leaky_relu
+    idx = [loader.next_indices()[0] for _ in range(4)]
+    per_kind = {}
+    for kind, flag in (("plain", False), ("r1", True)):
+        before = counter.launches, counter.scalar_launches
+        trainer.train_step(loader.materialize(idx[0]), do_r1=flag)
+        per_kind[kind] = (counter.launches - before[0],
+                          counter.scalar_launches - before[1])
+    assert 0 < per_kind["plain"][0] < per_kind["r1"][0]
+    before = counter.launches, counter.scalar_launches
+    runner = BlockRunner(trainer, loader)
+    runner.run(idx, None, [0.0] * 4, [False, True, False, True])
+    torch.cuda.synchronize()
+    assert runner.stats["replays"] == {"plain": 2, "r1": 2}
+    for i in range(2):
+        step = per_kind["plain"][i] + per_kind["r1"][i]
+        assert ((counter.launches, counter.scalar_launches)[i] - before[i]
+                == (WARMUP_STEPS + 2) * step)
