@@ -31,7 +31,7 @@ def step_flops(reference: Dict, kind: str) -> float:
 def _cached(reference_json: str, kind: str) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
-    from benchmark.reference.nets import make_model
+    from benchmark.reference.families import make_model
     from benchmark.reference.step import Trainer
 
     ref = json.loads(reference_json)
@@ -46,12 +46,9 @@ def _cached(reference_json: str, kind: str) -> float:
     images = torch.zeros((rc["batch_size"] * rc["n_critic"], size, size, 3),
                          dtype=torch.uint8, device="meta")
     step = rc.get("d_reg_every", 1) if kind == "r1" else 1
-    if kind == "plain" and ref["model"]["family"] == "stylegan2" \
-            and rc["lbd_r1"] > 0 and rc["d_reg_every"] == 1:
-        raise ValueError("this recipe has no plain step: R1 every step")
-    if kind == "r1" and (ref["model"]["family"] != "stylegan2"
-                         or rc["lbd_r1"] <= 0):
-        raise ValueError("this recipe has no R1 step")
+    if kind not in trainer.kinds():
+        raise ValueError(f"this recipe has no {kind} step; it has "
+                         f"{trainer.kinds()}")
     with FlopCounterMode(display=False) as counter:
         trainer.step(images, step)
     return float(counter.get_total_flops())

@@ -13,6 +13,9 @@ from typing import Callable, Dict, List, Tuple
 WINDOW = "benchmark.window"
 SHORT_GAP_S = 20e-6
 SHORT_GAP = "(gaps under 20 us between kernels)"
+# the kernels a traced window's lead-in launches before it, left out of it
+LEAD_IN = 256
+LEAD_IN_KERNEL = "spin_kernel"
 
 # A kernel's class, by the first rule whose key its name holds (the port's
 # kernels on the H100: cuDNN, cuBLAS/CUTLASS, PyTorch's own).
@@ -46,6 +49,7 @@ class Trace:
     window_s: float
     device: List[Tuple[str, float, float]]  # (name, start, end)
     host: List[Tuple[str, float, float]]
+    lead_in: int = 0  # the lead-in's kernels that the profiler kept
 
     def kernels(self) -> List[Tuple[str, float, float]]:
         return [e for e in self.device
@@ -139,22 +143,13 @@ def _events(prof):
                1000 * ev.time_range.start, 1000 * ev.time_range.end)
 
 
-def record(work: Callable[[], None], sync: Callable[[], None]) -> Trace:
-    """Run ``work`` under the profiler between two synchronisations;
-    returns its trace, whose window is the host clock's."""
-    import time
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(WINDOW):
-            t0 = time.perf_counter()
-            work()
-            sync()
-            window_s = time.perf_counter() - t0
-    events = list(_events(prof))
+def window_trace(events, window_s: float) -> Trace:
+    """The trace of the window from the profiler's events (``(name,
+    is_device, start_ns, end_ns)``): times from the window annotation's
+    start, scaled to the host clock's ``window_s``; the lead-in's kernels
+    (``LEAD_IN_KERNEL``) and host events that end before the window left
+    out."""
+    events = list(events)
     marks = [(s, e) for name, dev, s, e in events
              if name == WINDOW and not dev]
     if not marks:
@@ -165,5 +160,41 @@ def record(work: Callable[[], None], sync: Callable[[], None]) -> Trace:
     # the window's annotation is mirrored on the device's timeline: not work
     device = [(n, to_s(s), to_s(e)) for n, dev, s, e in events
               if dev and n != WINDOW]
-    host = [(n, to_s(s), to_s(e)) for n, dev, s, e in events if not dev]
-    return Trace(window_s, device, host)
+    kept = [d for d in device if LEAD_IN_KERNEL not in d[0]]
+    host = [(n, to_s(s), to_s(e)) for n, dev, s, e in events
+            if not dev and e > start]
+    return Trace(window_s, kept, host, len(device) - len(kept))
+
+
+def lead_in(sync: Callable[[], None]) -> None:
+    """``LEAD_IN`` empty kernels (``torch.cuda._sleep``), then a wait: CUPTI
+    can lose the first kernel records of a profiling session (on the H100,
+    0-7 of a session's first kernels, more in later sessions of a process),
+    and these take the loss in the window's place."""
+    import torch
+
+    for _ in range(LEAD_IN):
+        torch.cuda._sleep(1)
+    sync()
+
+
+def record(work: Callable[[], None], sync: Callable[[], None],
+           card: bool = True) -> Trace:
+    """Run ``work`` under the profiler between two synchronisations, on the
+    ``card`` after a lead-in (``lead_in``); returns its trace, whose window
+    is the host clock's."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if card:
+            lead_in(sync)
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            work()
+            sync()
+            window_s = time.perf_counter() - t0
+    return window_trace(_events(prof), window_s)

@@ -24,7 +24,8 @@ it from its default cadences), losses read on the host every
 ``print_every`` steps as the CLI does, until ``seconds`` have passed at a
 block boundary that closes a whole period of step kinds (K and the lazy-R1
 cadence). No capture, evaluation or save falls inside it. With a trace, a
-fixed number of whole periods runs under the profiler instead.
+fixed number of whole periods runs under the profiler instead, after a
+lead-in of empty kernels that the trace leaves out (``trace.lead_in``).
 
 After the window the program is freed and the reference follows the
 compared steps on the card in float32 with TF32 off.
@@ -301,10 +302,12 @@ def compared_blocks(cfg: Dict) -> List[List[int]]:
 
 
 def reference_readings(cfg: Dict, seed: int, device, blocks: List[List[int]],
-                       first: Dict[str, torch.Tensor]) -> Dict:
+                       first: Dict[str, torch.Tensor],
+                       keep_first: bool = False) -> Dict:
     """The reference's readings of the compared steps, in float32 with
     TF32 off, from the same seed, images and rows; ``grad_diff``, the norm
-    of each leaf's first gradient less the program's (``first``)."""
+    of each leaf's first gradient less the program's (``first``); with
+    ``keep_first``, ``first``, its own first gradients on the host."""
     from benchmark.reference.step import Trainer
     from benchmark.reference.weights import make_weights
 
@@ -338,8 +341,11 @@ def reference_readings(cfg: Dict, seed: int, device, blocks: List[List[int]],
                 for k, g in trainer.first_grads.items() if k in first}
         change = {k: float(torch.linalg.vector_norm(v.detach() - init[k]))
                   for k, v in trainer.leaves().items()}
-        return {"losses": losses, "grads": grads, "change": change,
-                "grad_diff": diff, "seconds": seconds}
+        out = {"losses": losses, "grads": grads, "change": change,
+               "grad_diff": diff, "seconds": seconds}
+        if keep_first:
+            out["first"] = {k: g.cpu() for k, g in trainer.first_grads.items()}
+        return out
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32[0]
         torch.backends.cudnn.allow_tf32 = tf32[1]
@@ -370,6 +376,31 @@ def compared_gaps(cfg: Dict, traffic: Dict, seed: int, device: str = "cuda",
                                            extra_argv, plant))
 
 
+def control_readings(cfg: Dict, traffic: Dict, seed: int,
+                     device: str = "cuda"):
+    """The compared steps of the mix's control against the reference: for
+    a float32 mix the program in bfloat16 (``--dtype bf16``, its own
+    path); for a bfloat16 mix, which the program has no lower path below,
+    the reference in the program's place with float8 products
+    (``reference/fp8.py``)."""
+    if traffic["dtype"] == "f32":
+        return compared_readings(cfg, traffic, seed, device,
+                                 ("--dtype", "bf16"))
+    from benchmark.reference.fp8 import float8_products
+
+    blocks = compared_blocks(cfg)
+    with float8_products():
+        low = reference_readings(cfg, seed, device, blocks, {},
+                                 keep_first=True)
+    first = low.pop("first")
+    return low, reference_readings(cfg, seed, device, blocks, first)
+
+
+def control_gaps(cfg: Dict, traffic: Dict, seed: int,
+                 device: str = "cuda") -> Dict[str, float]:
+    return compare.gaps(*control_readings(cfg, traffic, seed, device))
+
+
 def run_cell(cfg: Dict, traffic: Dict, limits: Dict, seed: int,
              seconds: float, trace: bool, device: str = "cuda",
              t_start: Optional[float] = None,
@@ -377,9 +408,14 @@ def run_cell(cfg: Dict, traffic: Dict, limits: Dict, seed: int,
     """One run of a training cell (see the module docstring). ``plant``,
     a fault for the tests, is called with the program once it is built.
     Returns the run's record for the result line and the metric readers."""
-    from contrad_tpu_torch.ops import blur
+    from contrad_tpu_torch.training.graph import COUNTED
 
-    from benchmark.harness.trace import record
+    from benchmark.harness.trace import LEAD_IN, record
+
+    def counters() -> Dict[str, int]:
+        """The program's launch counters of its hand-written kernels."""
+        return {f"{op.__name__}.{name}": getattr(op, name)
+                for op in COUNTED for name in ("launches", "scalar_launches")}
 
     t_start = time.perf_counter() if t_start is None else t_start
     blocks = compared_blocks(cfg)
@@ -398,18 +434,23 @@ def run_cell(cfg: Dict, traffic: Dict, limits: Dict, seed: int,
         log(f"settled: {settle['steps']} steps in {settle['seconds']:.3f} s; "
             f"steps/s between loss reads {settle['steps_per_s']}", t_start)
     rec: Dict = {"k": prog.k, "period": prog.period()}
-    launches = blur.blur2d.launches
+    counted = counters()
     if trace:
         steps = traffic["trace"]["min_steps"]
         steps = -(-steps // prog.period()) * prog.period()
         win = {}
         rec["trace"] = record(
-            lambda: win.update(prog.window(0.0, stop_at=steps)), prog.sync)
+            lambda: win.update(prog.window(0.0, stop_at=steps)), prog.sync,
+            card=device == "cuda")
         rec["window_s"] = rec["trace"].window_s
+        if device == "cuda":
+            log(f"trace: the lead-in's {rec['trace'].lead_in} of {LEAD_IN} "
+                f"kernels kept", t_start)
     else:
         win = prog.window(seconds)
         rec["setup_s"] = win["t0"] - t_start
-    rec.update(window=win, blur_launches=blur.blur2d.launches - launches,
+    rec.update(window=win,
+               counters={k: v - counted[k] for k, v in counters().items()},
                capture_s=sum(prog.runner.stats["capture_seconds"].values()),
                attempted=win["steps"], failed=min(prog.failed, win["steps"]),
                batch=prog.opt.batch_size * prog.opt.n_critic)

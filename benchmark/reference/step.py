@@ -1,16 +1,17 @@
 """ContraD's train steps in plain PyTorch (ContraD ``train_gan.py`` and
 ``train_stylegan2.py``; the ``contrad`` mode of ``training/gan/contrad.py``,
-``training/criterion.py``), float32.
+``training/criterion.py``), float32. The model family (``families/``)
+names the step it follows (``STEPS``):
 
-``family == "sndcgan"`` (``train_gan``): per critic sub-step the fakes of
-G in train mode without a gradient, ContraD's D loss on the augmented
-[real, real, fake] batch, one Adam step of D and D's ``u`` kept; then G's
-loss on D of its augmented fakes, one Adam step of G, D's ``u`` kept again.
+``"critic"`` (``train_gan``): per critic sub-step the fakes of G in train
+mode without a gradient, ContraD's D loss on the augmented [real, real,
+fake] batch, one Adam step of D and D's ``u`` kept; then G's loss on D of
+its augmented fakes, one Adam step of G, D's ``u`` kept again.
 
-``family == "stylegan2"`` (``train_stylegan2``): G's EMA from the
-parameters before the step; G's phase first; D's phase on G's fakes, with
-the R1 penalty ``0.5 * lbd_r1 * d_reg_every * E|grad_x D(x)|^2`` on
-augmented reals where the step's number is a multiple of ``d_reg_every``.
+``"ema_r1"`` (``train_stylegan2``): G's EMA from the parameters before the
+step; G's phase first; D's phase on G's fakes, with the R1 penalty
+``0.5 * lbd_r1 * d_reg_every * E|grad_x D(x)|^2`` on augmented reals where
+the step's number is a multiple of ``d_reg_every``.
 
 ContraD's D loss: NT-Xent of the two real views' projections, plus
 ``lbd_a`` times the supervised-contrastive loss of the fakes against both
@@ -33,9 +34,11 @@ import torch.nn.functional as F
 
 from benchmark.reference.augment import SimCLR, hflip_apply, hflip_sample
 from benchmark.reference.draws import Rand
-from benchmark.reference.nets import l2_rows, make_model
+from benchmark.reference.families import make_model
+from benchmark.reference.nets import l2_rows
 
-BUFFERS = (".u", ".running_mean", ".running_var")
+# the steps a family may follow (its ``step``), as the docstring says
+STEPS = ("critic", "ema_r1")
 
 
 def nt_xent(a, b, t: float):
@@ -83,7 +86,10 @@ class Trainer:
                  seed: int, device, count_flops: bool = False):
         self.cfg, self.rc = cfg, cfg["recipe"]
         self.model = make_model(cfg["model"])
-        self.family = cfg["model"]["family"]
+        if self.model.step not in STEPS:
+            raise ValueError(f"unknown step {self.model.step!r}; one of "
+                             f"{STEPS}")
+        self.ema_r1 = self.model.step == "ema_r1"
         self.r = Rand.from_seed(seed, device)
         self.aug = (Identity() if count_flops
                     else SimCLR(cfg["augment"], cfg["augment"]["hq"]))
@@ -93,7 +99,7 @@ class Trainer:
             p, s = {}, {}
             for name, _, _ in spec:
                 w = weights[part][name].detach().clone()
-                if name.endswith(BUFFERS):
+                if name.endswith(self.model.buffers):
                     s[name] = w
                 else:
                     p[name] = w.requires_grad_(True)
@@ -102,7 +108,7 @@ class Trainer:
         self.g, self.g_state = split(self.model.g_spec(), "generator")
         self.d, self.d_state = split(self.model.d_spec(), "discriminator")
         self.ema = ({k: v.detach().clone() for k, v in self.g.items()}
-                    if self.family == "stylegan2" else None)
+                    if self.ema_r1 else None)
         self.adam = {"g": self._adam(self.g), "d": self._adam(self.d)}
         self.first_grads: Optional[Dict[str, torch.Tensor]] = None
         self.grads: Dict[str, torch.Tensor] = {}
@@ -170,6 +176,15 @@ class Trainer:
     def G(self, draws):
         return self.model.generator(self.g, self.g_state, draws)
 
+    def kinds(self) -> tuple:
+        """The kinds of step the recipe runs: ``plain``, and ``r1`` where
+        the step has the R1 penalty (every step where ``d_reg_every`` is
+        1)."""
+        rc = self.rc
+        if not (self.ema_r1 and rc["lbd_r1"] > 0):
+            return ("plain",)
+        return ("r1",) if rc["d_reg_every"] == 1 else ("plain", "r1")
+
     # ------------------------------------------------------------ step
 
     def step(self, images: torch.Tensor, step: int) -> Dict[str, torch.Tensor]:
@@ -184,23 +199,22 @@ class Trainer:
         critic = [(self.model.sample_z(n, r), self.aug.sample(big, r))
                   for _ in range(rc["n_critic"])]
         g_draws, g_aug = self.model.sample_z(n, r), self.aug.sample(shape, r)
-        r1 = (self.family == "stylegan2" and rc["lbd_r1"] > 0
-              and step % rc["d_reg_every"] == 0)
+        r1 = "r1" in self.kinds() and step % rc["d_reg_every"] == 0
         r1_aug = self.aug.sample(shape, r) if r1 else None
         if flip is not None:
             x = hflip_apply(x, flip)
         batches = x.split(n)
         self.grads = {}
-        if self.family == "sndcgan":
-            out = self._gan_step(batches, critic, g_draws, g_aug)
+        if self.ema_r1:
+            out = self._ema_r1_step(batches, critic, g_draws, g_aug, r1,
+                                    r1_aug, step)
         else:
-            out = self._sg2_step(batches, critic, g_draws, g_aug, r1, r1_aug,
-                                 step)
+            out = self._critic_step(batches, critic, g_draws, g_aug)
         if self.first_grads is None:
             self.first_grads = self.grads
         return {k: v.detach() for k, v in out.items()}
 
-    def _gan_step(self, batches, critic, g_draws, g_aug):
+    def _critic_step(self, batches, critic, g_draws, g_aug):
         for batch, (z, aug_p) in zip(batches, critic):
             with torch.no_grad():
                 fake = self.G(z)
@@ -214,7 +228,8 @@ class Trainer:
         self.commit(staged)
         return dict(out, G_loss=loss)
 
-    def _sg2_step(self, batches, critic, g_draws, g_aug, do_r1, r1_aug, step):
+    def _ema_r1_step(self, batches, critic, g_draws, g_aug, do_r1, r1_aug,
+                     step):
         rc = self.rc
         decay = (0.5 ** (rc["batch_size"] / (rc["halflife_k"] * 1000))
                  if step * rc["batch_size"] > rc["ema_start_k"] * 1000 else 0.0)
@@ -242,7 +257,8 @@ class Trainer:
 
     def leaves(self) -> Dict[str, torch.Tensor]:
         """The trained tensors by the program's names: ``generator.*``,
-        ``discriminator.*`` and, for StyleGAN2, ``g_ema.*``."""
+        ``discriminator.*`` and, where the step keeps G's EMA,
+        ``g_ema.*``."""
         out = {f"generator.{k}": v for k, v in self.g.items()}
         out.update({f"discriminator.{k}": v for k, v in self.d.items()})
         if self.ema is not None:

@@ -75,7 +75,7 @@ def result(cell, rec: dict, trace: bool, kind: str, power: str) -> dict:
         run = {"trace": rec["trace"], "window_s": rec["window_s"],
                "steps": win["steps"], "kinds": win["kinds"],
                "capture_s": rec["capture_s"],
-               "blur_launches": rec["blur_launches"],
+               "counters": rec["counters"],
                "config": cell.config, "dtype": cell.traffic["dtype"]}
         metrics = {}
         for m in cell.per_layer:

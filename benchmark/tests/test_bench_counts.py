@@ -24,7 +24,7 @@ def test_sndcgan_forward_flops_by_hand():
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from benchmark.reference.nets import SNDCGAN
+    from benchmark.reference.families.sndcgan import SNDCGAN
 
     model = SNDCGAN(_reference("sndcgan_c10_b512")["model"])
     d = {n: torch.zeros(s, device="meta") for n, s, _ in model.d_spec()}

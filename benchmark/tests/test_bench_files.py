@@ -76,3 +76,30 @@ def test_files_added_in_a_copy_are_found(tmp_path):
     for path, data in before.items():  # nothing that was there changed
         if path.name != "BENCHMARK.json":
             assert path.read_bytes() == data, path
+
+
+def test_the_bf16_cell_loads_and_takes_the_bf16_peak():
+    """``sg2_afhq512_b16.bf16``: the 512x512 configuration under the bf16
+    mix, with the blur's and the fused activation's metrics, and its step
+    MFU at the bf16 peak (989 TFLOP/s) where the train mix's takes TF32's
+    (495)."""
+    from benchmark.harness.spec import load_cell
+
+    cell = load_cell("sg2_afhq512_b16.bf16", ROOT)
+    train = load_cell("sg2_afhq512_b16.train", ROOT)
+    assert cell.config == train.config and cell.chips == 1
+    argv = cell.traffic["argv"]
+    for flag in ("--dtype", "--opt_moments", "--opt_nu", "--opt_grads"):
+        assert argv[argv.index(flag) + 1] == "bf16"
+    assert cell.traffic["dtype"] == "bf16"
+    assert {"r1_step_ms", "blur_roofline_pct", "fused_act_roofline_pct",
+            "fused_act_launches_per_step"} <= set(cell.readers)
+    # its replays do not keep the marks inside a step in place (PERF.md)
+    assert not {"g_phase_ms_per_step", "d_phase_ms_per_step",
+                "aug_ms_per_step", "update_ms_per_step"} & set(cell.readers)
+    run = {"config": cell.config, "kinds": {"plain": 75, "r1": 5},
+           "window_s": 10.0}
+    bf16 = cell.readers["step_mfu_pct"](dict(run, dtype=cell.traffic["dtype"]))
+    f32 = train.readers["step_mfu_pct"](dict(run,
+                                             dtype=train.traffic["dtype"]))
+    assert bf16 == pytest.approx(f32 * 495 / 989)

@@ -16,12 +16,19 @@ def _record(trace: bool):
     from benchmark.harness.trace import Trace
 
     tr = Trace(1.0, [("k_conv_fprop", 0.0, 0.4), ("blur2d_kernel", 0.35, 0.5),
+                     ("void bias_act_planes_elementwise_kernel<float, 4, "
+                      "true>(float const*)", 0.1, 0.12),
+                     ("void bias_grad_sum_kernel<float>(float const*)", 0.12,
+                      0.13),
                      ("Memcpy HtoD", 0.6, 0.7)],
                [("cudaGraphLaunch", 0.55, 0.8)])
     rec = {"window": {"steps": 20, "seconds": 2.0, "kinds": {"r1": 20}},
            "memory_peak_bytes": 2**30, "setup_s": 12.5, "batch": 64,
            "attempted": 20, "failed": 0, "correct": True, "capture_s": 0.5,
-           "blur_launches": 1080, "window_s": 1.0,
+           "window_s": 1.0,
+           "counters": {"blur2d.launches": 1080,
+                        "fused_leaky_relu.launches": 3300,
+                        "fused_leaky_relu.scalar_launches": 0},
            "checks": {"loss_gap": {"value": 1e-3, "limit": 1e-2},
                       "grad_gap": {"value": float("inf"), "limit": 1e-1}}}
     if trace:
@@ -53,8 +60,15 @@ def test_result_line(trace):
     assert d["busy_s"] == pytest.approx(0.6) and d["window_s"] == 1.0
     m = line["metrics"]
     assert m["device_idle_pct"]["value"] == pytest.approx(40.0)
-    assert m["launches_per_step"]["value"] == pytest.approx(2 / 20)
+    assert m["launches_per_step"]["value"] == pytest.approx(4 / 20)
     assert m["blur_launches_per_step"]["value"] == 54.0
+    assert m["fused_act_launches_per_step"]["value"] == 165.0
+    # 20 R1 steps of the 32x32 table's bytes over the two kernels' 0.03 s
+    from benchmark.counts.fused_act import step_bytes
+
+    ref = cell.config["reference"]
+    want = 100.0 * 20 * step_bytes(ref["model"], 64, "r1") / 3.35e12 / 0.03
+    assert m["fused_act_roofline_pct"]["value"] == pytest.approx(want)
     assert 0 < m["step_mfu_pct"]["value"]
     assert len(line["breakdown"]["device_ops"]) <= 10
     assert line["breakdown"]["idle_gaps"][0][1] == pytest.approx(0.3)

@@ -105,3 +105,22 @@ def test_the_readers_per_step_and_the_r1_step():
                 _run(_marks(("k", 1.0)), 4, {"plain": 2, "r1": 2})):
         assert all(r(bad) is None for r in read.values())
 
+
+
+def test_a_mark_out_of_place_inside_a_step_leaves_the_steps():
+    """An ``aug`` end mark that starts before its begin mark (as one did in
+    a bf16 replay): the phases' self times read None, the steps, cut at
+    their begin marks alone, still give the R1 step's time."""
+    from benchmark.harness.spec import load_reader
+
+    r1 = _step(True)
+    at = r1.index("+g") + 2
+    assert r1[at:at + 3] == ["+aug", ("aug_k", 0.5), "-aug"]
+    r1[at:at + 3] = ["-aug", "+aug", ("aug_k", 0.5)]
+    run = _run(_marks(*_step(False), *r1, *_step(False), *_step(True)), 4,
+               {"plain": 2, "r1": 2})
+    for name in ("g_phase_ms_per_step", "d_phase_ms_per_step",
+                 "aug_ms_per_step", "update_ms_per_step"):
+        assert load_reader(name, ROOT)(run) is None
+    assert load_reader("r1_step_ms", ROOT)(run) == pytest.approx(
+        1e3 * (9.09375 + 20e-6))

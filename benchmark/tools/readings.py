@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The readings that the limits of ``benchmark/limits/<cell>.json`` are
 set from: the compared steps' gaps of the program over many seeds, of the
-control (the program in bfloat16, ``--dtype bf16``: the nearest precision
-below the configuration's float32) and of planted faults, all in one
-process, one JSON line each:
+control (``harness/train.py``'s ``control_readings``: for a float32 mix
+the program in bfloat16, ``--dtype bf16``; for a bfloat16 mix the
+reference with float8 products in the program's place) and of planted
+faults, all in one process, one JSON line each:
 
     python3 benchmark/tools/readings.py --workload sndcgan_c10_b512.train \\
         --seeds 101-112 --control 3 --faults half_batch:3,no_r1:3
@@ -20,7 +21,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-CONTROL_ARGV = ("--dtype", "bf16")
 
 
 def seeds(text: str):
@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", default="101-112")
     p.add_argument("--control", type=int, default=3,
-                   help="seeds (the first of --seeds) of the bf16 control")
+                   help="seeds (the first of --seeds) of the control")
     p.add_argument("--faults", default="",
                    help="comma-separated name:seeds of faults to plant")
     p.add_argument("--device", default="cuda")
@@ -44,22 +44,27 @@ def main(argv=None) -> int:
     from benchmark.harness.faults import FAULTS
     from benchmark.harness.spec import load_cell
     from benchmark.harness.compare import gaps as gaps_of
-    from benchmark.harness.train import compared_readings
+    from benchmark.harness.train import compared_readings, control_readings
 
     cell = load_cell(args.workload, ROOT)
     all_seeds = seeds(args.seeds)
-    runs = [("program", s, (), None) for s in all_seeds]
-    runs += [("control_bf16", s, CONTROL_ARGV, None)
-             for s in all_seeds[:args.control]]
+    control = "control_bf16" if cell.traffic["dtype"] == "f32" \
+        else "control_fp8"
+    runs = [("program", s, None) for s in all_seeds]
+    runs += [(control, s, None) for s in all_seeds[:args.control]]
     for item in filter(None, args.faults.split(",")):
         name, _, n = item.partition(":")
-        runs += [(name, s, (), FAULTS[name]) for s in all_seeds[:int(n or 3)]]
-    for variant, seed, extra, plant in runs:
+        runs += [(name, s, FAULTS[name]) for s in all_seeds[:int(n or 3)]]
+    for variant, seed, plant in runs:
         t0 = time.perf_counter()
         detail = None
         try:
-            prog, ref = compared_readings(cell.config, cell.traffic, seed,
-                                          args.device, extra, plant)
+            if variant == control:
+                prog, ref = control_readings(cell.config, cell.traffic, seed,
+                                             args.device)
+            else:
+                prog, ref = compared_readings(cell.config, cell.traffic,
+                                              seed, args.device, (), plant)
             gaps, error = gaps_of(prog, ref), None
             if args.detail:
                 detail = {"program": prog, "reference": ref}
