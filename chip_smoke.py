@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``contrad_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--fused_act_only]
+                          [--filtered_lrelu_only]
 
 Phases, in order; any failure ends the run with a non-zero exit code and no
 result line:
@@ -9,7 +10,7 @@ result line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written CUDA blur kernel (``contrad_tpu_torch/csrc``) from
    the sources beside this script, and time the build; then the fused
-   activation's kernel;
+   activation's kernel and the filtered leaky ReLU's;
 3. hold the blur kernel to its plain PyTorch version at every (shape, pad)
    that a train step of either StyleGAN2 path gives it, forward and
    adjoint (the 32x32 recipe at batch 64, the 512x512 recipe at batch 16),
@@ -217,7 +218,22 @@ result line:
    byte bound; then its launches (and the blur's) in one eager step of
    each kind of the 512x512 recipe at batch 16 and the 32x32 recipe at
    batch 64, none on the scalar path. ``--fused_act_only`` runs phases 1,
-   2 and 17 alone.
+   2 and 17 alone;
+18. StyleGAN3-T's filtered leaky ReLU kernel (``csrc/filtered_lrelu.cu``)
+   at every layer shape of the 512x512 schedule at the benchmark cell's
+   batch of 16, float32 and bfloat16 (TF32 off), clamp 2.5 so that it
+   engages: the kernel (one launch each way for the whole batch) against
+   the plain op run in chunks of images (the largest power of two up to 16
+   whose upsampled grid holds at most 4e8 values): the forward, the sign
+   bits against the plain grid's branches away from a kink, dx and db
+   against the linear map those branches give, each within 1e-5 (float32)
+   or 1e-2 (bfloat16) of the largest magnitude, as the kernel's ``cuda``
+   tests; then float32 times of the kernel (forward; gradient with the bias
+   sum) beside each launch's roofline (``benchmark/counts/filtered_lrelu.py``)
+   and the plain op (its chunks summed); then its launches in one eager
+   step of each kind of the cell's recipe (``stylegan3_t_512`` at batch 16)
+   against the benchmark's table, none on the scalar path.
+   ``--filtered_lrelu_only`` runs phases 1, 2 and 18 alone.
 
 Then it prints the whole run's time, the kernel table as one JSON line,
 the card's name and power limit, and, last, ``{"ok": true, "device":
@@ -3242,6 +3258,262 @@ def fused_act_phase(fused_act) -> dict:
         "launches_per_step": {k: v["launches"]
                               for k, v in launches.items()}})
 
+
+# Phase 18: StyleGAN3-T's filtered leaky ReLU at the main path's shapes.
+# The cell's configuration gives the recipe (argv) and the model table that
+# the benchmark's counts read (the launches and their roofline times).
+SG3_CONFIG = ROOT / "benchmark" / "configs" / "stylegan3t_afhq512_b16.json"
+FLR_CLAMP = 2.5  # engaged at unit inputs (the layers' 256 rarely is)
+# max |kernel - plain| over the largest |plain|, as the kernel's cuda tests:
+# float32, sums of up to 24 products in another order; bfloat16, the
+# output rounded once
+FLR_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FLR_CHUNK_VALUES = 4e8  # upsampled values of a chunk of the plain op
+
+
+def flr_layer(flr, spec):
+    """A layer's call: taps, factors, padding, gain and slope."""
+    fu = flr.lowpass_filter(spec["taps_up"], spec["in_cutoff"],
+                            2 * spec["in_half_width"], spec["tmp_rate"])
+    fd = flr.lowpass_filter(spec["taps_down"], spec["out_cutoff"],
+                            2 * spec["out_half_width"], spec["tmp_rate"])
+    gain, slope = (1.0, 1.0) if spec["torgb"] else (math.sqrt(2.0), 0.2)
+    return (None if fu is None else tuple(fu.tolist()),
+            None if fd is None else tuple(fd.tolist()), spec["up"],
+            spec["down"], spec["padding"], gain, slope)
+
+
+def check_filtered_lrelu(flr, spec, layer: int, dtype, batch: int) -> dict:
+    """The kernel at one layer's shape against the plain op: the forward,
+    the sign bits against the plain grid's branches (away from a kink), and
+    dx and db against the linear map those branches give, the plain op's
+    pieces differentiated by autograd. The kernel runs the whole batch in
+    one launch each way; the plain op runs in chunks of images that fit."""
+    import torch
+
+    fu, fd, up, down, pad, gain, slope = flr_layer(flr, spec)
+    c, side = spec["out_channels"], spec["in_size"] + spec["kernel"] - 1
+    gen = torch.Generator(device="cuda").manual_seed(layer)
+    x = torch.randn(batch, side, side, c, generator=gen, device="cuda").to(
+        dtype).requires_grad_(True)
+    b = (0.3 * torch.randn(c, generator=gen, device="cuda")).to(
+        dtype).requires_grad_(True)
+    before = flr.filtered_lrelu.launches
+    y = flr.filtered_lrelu(x, b, fu, fd, up, down, pad, gain, slope,
+                           FLR_CLAMP)
+    (signs,) = y.grad_fn.saved_tensors
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    dx, db = torch.autograd.grad(y, (x, b), dy)
+    torch.cuda.synchronize()
+    launches = flr.filtered_lrelu.launches - before
+    if launches != 2 or flr.filtered_lrelu.scalar_launches:
+        raise AssertionError(f"filtered_lrelu L{layer}: {launches} launches "
+                             f"for a forward and its gradient")
+    geo = flr.geometry(side, side, up, down, spec["taps_up"],
+                       spec["taps_down"], pad)
+    gh, gw = geo.grid_h, geo.grid_w
+    chunk = batch
+    while chunk > 1 and chunk * c * gh * gw > FLR_CHUNK_VALUES:
+        chunk //= 2
+    e = dict(y=0.0, y_scale=0.0, dx=0.0, dx_scale=0.0, flips=0, clamped=0,
+             unclamped=0)
+    db_ref = torch.zeros(c, dtype=torch.float32, device="cuda")
+    dx_sum = torch.zeros_like(db_ref)
+    for i in range(0, batch, chunk):
+        rows = slice(i, i + chunk)
+        xs = x.detach()[rows].float().clone().requires_grad_(True)
+        bs = b.detach().float().clone().requires_grad_(True)
+        with torch.no_grad():
+            want = flr.filtered_lrelu_plain(xs, bs, fu, fd, up, down, pad,
+                                            gain, slope, FLR_CLAMP)
+            e["y"] = max(e["y"], float((y[rows].float() - want).abs().max()))
+            e["y_scale"] = max(e["y_scale"], float(want.abs().max()))
+            del want
+        u = flr.filtered_lrelu_plain(xs, bs, fu, None, up, 1, pad, 1.0, 1.0,
+                                     None)[:, :gh, :gw]
+        with torch.no_grad():
+            neg, clp = flr.branches(signs[rows], c)
+            ud = u.detach().permute(0, 3, 1, 2)
+            eps = 1e-5 * float(ud.abs().max())
+            if slope != 1.0:
+                sure = ud.abs() > eps
+                e["flips"] += int((neg[sure] != (ud < 0)[sure]).sum())
+            v = torch.where(ud < 0, ud * slope, ud) * gain
+            far = (v.abs() - FLR_CLAMP).abs() > eps
+            e["flips"] += int((clp[far] != (v.abs() > FLR_CLAMP)[far]).sum())
+            e["clamped"] += int(clp.sum())
+            e["unclamped"] += int((~clp).sum())
+            factor = torch.where(clp, 0.0, gain * torch.where(
+                neg, slope, 1.0)).permute(0, 2, 3, 1).contiguous()
+            del neg, clp, ud, v, far
+        lin = flr.filtered_lrelu_plain(u * factor, None, None, fd, 1, down,
+                                       (0, 0, 0, 0), 1.0, 1.0, None)
+        gx, gb = torch.autograd.grad(lin, (xs, bs), dy[rows].float())
+        e["dx"] = max(e["dx"], float((dx[rows].float() - gx).abs().max()))
+        e["dx_scale"] = max(e["dx_scale"], float(gx.abs().max()))
+        db_ref += gb
+        dx_sum += gx.abs().sum((0, 1, 2))
+        del xs, bs, u, factor, lin, gx, gb
+    tol = FLR_TOL[str(dtype).split(".")[-1]]
+    out = dict(layer=layer, dtype=str(dtype).split(".")[-1], batch=batch,
+               plain_chunk=chunk, shape=[batch, side, side, c],
+               y_rel_err=e["y"] / e["y_scale"],
+               dx_rel_err=e["dx"] / e["dx_scale"],
+               db_rel_err=float((db.float() - db_ref).abs().max()
+                                / dx_sum.max()),
+               sign_flips=e["flips"])
+    bad = [k for k in ("y_rel_err", "dx_rel_err", "db_rel_err")
+           if out[k] > tol]
+    if bad or e["flips"] or not (e["clamped"] and e["unclamped"]):
+        raise AssertionError(f"filtered_lrelu L{layer} {out['dtype']} batch "
+                             f"{batch}: {out} (tolerance {tol}; clamped "
+                             f"{e['clamped']}, not {e['unclamped']})")
+    return out
+
+
+def time_filtered_lrelu(flr, spec, layer: int, batch: int,
+                        chunk: int) -> dict:
+    """Float32 ms at one layer's shape: the kernel forward, and its
+    gradient with the bias sum (``autograd.grad``, eager: a launch takes
+    milliseconds here); the plain op forward and its autograd gradient in
+    chunks of ``chunk`` images, summed over the batch."""
+    import torch
+
+    fu, fd, up, down, pad, gain, slope = flr_layer(flr, spec)
+    c, side = spec["out_channels"], spec["in_size"] + spec["kernel"] - 1
+    args = (fu, fd, up, down, pad, gain, slope, FLR_CLAMP)
+    gen = torch.Generator(device="cuda").manual_seed(layer)
+    x = torch.randn(batch, side, side, c, generator=gen, device="cuda")
+    b = 0.3 * torch.randn(c, generator=gen, device="cuda")
+    xg, bg = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    y = flr.filtered_lrelu(xg, bg, *args)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    ms = dict(
+        forward=cuda_ms(lambda a: flr.filtered_lrelu(a, b, *args), [x], 5),
+        backward=cuda_ms(lambda g: torch.autograd.grad(
+            y, (xg, bg), g, retain_graph=True), [dy], 5))
+    del y, xg, bg
+    xc = x[:chunk].clone().requires_grad_(True)
+    bc = b.clone().requires_grad_(True)
+    yc = flr.filtered_lrelu_plain(xc, bc, *args)
+    dyc = dy[:chunk].contiguous()
+    ms["plain_forward"] = batch // chunk * cuda_ms(
+        lambda a: flr.filtered_lrelu_plain(a, b, *args), [x[:chunk]], 3)
+    ms["plain_backward"] = batch // chunk * cuda_ms(
+        lambda g: torch.autograd.grad(yc, (xc, bc), g, retain_graph=True),
+        [dyc], 3)
+    return ms
+
+
+def flr_step_launches(flr, want: dict) -> dict:
+    """The kernel's launches in one eager step of each kind of the cell's
+    recipe at its batch (``train_stylegan2.build`` on a small synthetic
+    set), against the benchmark's table; none may take the scalar path."""
+    import torch
+
+    from contrad_tpu_torch import train_stylegan2
+
+    argv = json.loads(SG3_CONFIG.read_text())["program"]["argv"]
+    P = train_stylegan2.parse_args(argv + ["options.dataset=synthetic_512_64"])
+    _, loader, trainer = train_stylegan2.build(P)
+    idx = loader.next_indices()[0]
+    out = {}
+    for kind, flag in (("plain", False), ("r1", True)):
+        before = flr.filtered_lrelu.launches
+        trainer.train_step(loader.materialize(idx), do_r1=flag)
+        torch.cuda.synchronize()
+        out[kind] = flr.filtered_lrelu.launches - before
+        if out[kind] != want[kind] or flr.filtered_lrelu.scalar_launches:
+            raise AssertionError(f"stylegan3_t_512 {kind} step: {out[kind]} "
+                                 f"filtered_lrelu launches, the benchmark's "
+                                 f"table {want[kind]}")
+    del loader, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def filtered_lrelu_phase(flr) -> dict:
+    """Phase 18: the filtered leaky ReLU kernel at every layer shape of
+    StyleGAN3-T at 512x512, at the cell's batch, against the plain op
+    (float32 and bfloat16); its times beside the roofline of
+    ``benchmark/counts/filtered_lrelu.py`` and the plain op; its launches
+    in a step of each kind."""
+    import torch
+
+    from benchmark.counts import filtered_lrelu as counts
+    from contrad_tpu_torch.models.stylegan3 import synthesis_schedule
+
+    t0 = time.perf_counter()
+    conf = json.loads(SG3_CONFIG.read_text())
+    model = conf["reference"]["model"]
+    batch = conf["reference"]["recipe"]["batch_size"]
+    phase(f"[18] the filtered leaky ReLU kernel: every layer of StyleGAN3-T "
+          f"at 512x512, batch {batch}, against the plain op; times; launches "
+          f"a step")
+    table = counts.launches(model, batch)
+    specs = synthesis_schedule(512)[1:]
+    if len(table) != 2 * len(specs):
+        raise AssertionError(f"the benchmark's table has {len(table)} "
+                             f"launches for {len(specs)} layers")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    try:
+        for layer, spec in enumerate(specs):
+            fwd, bwd = table[2 * layer], table[2 * layer + 1]
+            side = spec["in_size"] + spec["kernel"] - 1
+            if fwd[1] != (batch, side, side, spec["out_channels"]):
+                raise AssertionError(f"L{layer}: the benchmark's table has "
+                                     f"{fwd[1]}")
+            checks = [check_filtered_lrelu(flr, spec, layer, dtype, batch)
+                      for dtype in (torch.float32, torch.bfloat16)]
+            torch.cuda.empty_cache()
+            ms = time_filtered_lrelu(flr, spec, layer, batch,
+                                     checks[0]["plain_chunk"])
+            torch.cuda.empty_cache()
+            bound = dict(forward=1e3 * counts.launch_seconds(fwd),
+                         backward=1e3 * counts.launch_seconds(bwd))
+            rows.append(dict(checks=checks, ms=ms, bound_ms=bound))
+            log(f"  L{layer} {tuple(checks[0]['shape'])} plain in chunks of "
+                f"{checks[0]['plain_chunk']}: rel err y/dx/db "
+                + "; ".join(f"{r['dtype']} {r['y_rel_err']:.1e}/"
+                            f"{r['dx_rel_err']:.1e}/{r['db_rel_err']:.1e}"
+                            for r in checks)
+                + f"; forward {ms['forward']:.3f} ms (bound "
+                f"{bound['forward']:.3f}, plain {ms['plain_forward']:.3f}), "
+                f"backward {ms['backward']:.3f} ms (bound "
+                f"{bound['backward']:.3f}, plain {ms['plain_backward']:.3f})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = {kind: counts.step_launches(model, batch, kind)
+            for kind in ("plain", "r1")}
+    launches = flr_step_launches(flr, want)
+    ways = ("forward", "backward")
+    total = dict(
+        ms={w: sum(r["ms"][w] for r in rows) for w in ways},
+        bound_ms={w: sum(r["bound_ms"][w] for r in rows) for w in ways},
+        plain_ms={w: sum(r["ms"][f"plain_{w}"] for r in rows) for w in ways})
+    log(f"  a step's 15 layers (batch {batch}, float32): kernel "
+        f"{total['ms']['forward']:.2f} + {total['ms']['backward']:.2f} ms, "
+        f"bound {total['bound_ms']['forward']:.2f} + "
+        f"{total['bound_ms']['backward']:.2f}, plain "
+        f"{total['plain_ms']['forward']:.2f} + "
+        f"{total['plain_ms']['backward']:.2f}; launches a step {launches}")
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+    worst = {k: max(c[k] for r in rows for c in r["checks"])
+             for k in ("y_rel_err", "dx_rel_err", "db_rel_err")}
+    return dict(rows=rows, launches_per_step=launches, kernel={
+        "name": "filtered_lrelu", "route": "cuda",
+        "source": "contrad_tpu_torch/csrc/filtered_lrelu.cu",
+        "replaces": None, "batch": batch, "layers": len(specs),
+        "max_rel_err": worst, "ms": total["ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": "per launch the larger of bytes at 3.35 TB/s and FMAs "
+                    "at 67 TFLOP/s (benchmark/counts/filtered_lrelu.py)",
+        "plain_ms": total["plain_ms"],
+        "launches_per_step": {f"stylegan3_t_512 {k}": v
+                              for k, v in launches.items()}})
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------------- the packed layout
@@ -3938,6 +4210,8 @@ def main() -> int:
                     help="also write every measurement to this JSON file")
     ap.add_argument("--fused_act_only", action="store_true",
                     help="run phases 1, 2 and 17 alone")
+    ap.add_argument("--filtered_lrelu_only", action="store_true",
+                    help="run phases 1, 2 and 18 alone")
     args = ap.parse_args()
 
     import torch
@@ -3969,11 +4243,28 @@ def main() -> int:
         logs.cleanup()
 
 
-def run_phases(args, drawing: dict) -> int:
-    """Phases 1-16 (``main`` starts the dataset draw and stops it)."""
+def one_kernel_result(args, card: str, kind: str, kernel: dict,
+                      **record) -> int:
+    """The end of a run of one kernel's phase alone: ``record`` to
+    ``--out``, then the kernel line, the card and the result line."""
     import torch
 
-    from contrad_tpu_torch.ops import blur, fused_act
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(dict(card=card, kind=kind, **record),
+                                       indent=1, default=str))
+    print(json.dumps({"kernels": [kernel]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(args, drawing: dict) -> int:
+    """Phases 1-18 (``main`` starts the dataset draw and stops it)."""
+    import torch
+
+    from contrad_tpu_torch.ops import blur, filtered_lrelu, fused_act
 
     card = card_line()
     phase(f"[1] card: {card}")
@@ -3989,17 +4280,17 @@ def run_phases(args, drawing: dict) -> int:
     phase(f"  built the fused activation kernel in {act_build_s:.2f} s")
     if args.fused_act_only:
         phase17 = fused_act_phase(fused_act)
-        if args.out is not None:
-            args.out.parent.mkdir(parents=True, exist_ok=True)
-            args.out.write_text(json.dumps(dict(
-                card=card, kind=kind, act_build_s=act_build_s,
-                fused_act=phase17), indent=1, default=str))
-        print(json.dumps({"kernels": [phase17["kernel"]]}))
-        print(card)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind,
-            "count": torch.cuda.device_count()}}))
-        return 0
+        return one_kernel_result(args, card, kind, phase17["kernel"],
+                                 act_build_s=act_build_s, fused_act=phase17)
+    t0 = time.perf_counter()
+    filtered_lrelu.build(verbose=True)
+    flr_build_s = time.perf_counter() - t0
+    phase(f"  built the filtered leaky ReLU kernel in {flr_build_s:.2f} s")
+    if args.filtered_lrelu_only:
+        phase18 = filtered_lrelu_phase(filtered_lrelu)
+        return one_kernel_result(args, card, kind, phase18["kernel"],
+                                 flr_build_s=flr_build_s,
+                                 filtered_lrelu=phase18)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4115,6 +4406,7 @@ def run_phases(args, drawing: dict) -> int:
     phase15 = variants_phase()
     phase16 = runbook_phase()
     phase17 = fused_act_phase(fused_act)
+    phase18 = filtered_lrelu_phase(filtered_lrelu)
 
     big = max((r for r in rows if r["dtype"] == "float32"),
               key=lambda r: r["bytes"])
@@ -4161,7 +4453,7 @@ def run_phases(args, drawing: dict) -> int:
                for name, n in phase15["launches"].items()}},
         "launches_per_step": dict(per_step, sndcgan=0, snresnet18=0,
                                   sndcgan_conditional=0)},
-        phase17["kernel"]]
+        phase17["kernel"], phase18["kernel"]]
     total_s = time.perf_counter() - T0
     log(f"whole run: {total_s:.1f} s")
     if args.out is not None:
@@ -4182,7 +4474,8 @@ def run_phases(args, drawing: dict) -> int:
             evaluation=phase8, inception=phase9, bf16=phase10,
             graphs=phase11, worlds=phase12, data_paths=phase13,
             packed=phase14, variants=phase15, runbook=phase16,
-            act_build_s=act_build_s, fused_act=phase17),
+            act_build_s=act_build_s, fused_act=phase17,
+            flr_build_s=flr_build_s, filtered_lrelu=phase18),
             indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

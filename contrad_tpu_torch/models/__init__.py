@@ -10,6 +10,15 @@ modules on ``device`` computing in ``dtype``:
     package's space-to-depth packing of the shallow levels is a TPU layout
     of the same function and parameter tree
   * ``stylegan2_tiny`` — test width (0.25x channels, n_mlp=2, d_hidden=32)
+  * ``stylegan3_t_512`` — StyleGAN3-T's G (``models/stylegan3``, NVlabs'
+    ``--cfg=stylegan3-t`` widths: cbase 32768, cmax 512, 14 layers, 2
+    mapping layers) with ``stylegan2_512``'s D
+  * ``stylegan3_t_tiny`` — its test width: 6 layers (one x4, a critically
+    sampled pair, ToRGB), at most 32 channels, z and w of 32, with
+    ``stylegan2_tiny``'s D
+
+``batch_size``, where given, sets StyleGAN3's magnitude-EMA decay as NVlabs'
+``train.py`` does, ``0.5 ** (batch_size / 20000)``.
 """
 
 from __future__ import annotations
@@ -25,13 +34,19 @@ from contrad_tpu_torch.models.base import (
 
 
 ARCHITECTURES = ("sndcgan", "snresnet18", "stylegan2", "stylegan2_512",
-                 "stylegan2_tiny")
+                 "stylegan2_tiny", "stylegan3_t_512", "stylegan3_t_tiny")
+
+
+# stylegan3_t_tiny's schedule (synthesis_schedule's keywords): at 32x32,
+# widths 32, 32, 23, 13, 8, 8, 3 and rates 16, 16, 32, ...: L2 upsamples x4
+TINY_SCHEDULE = dict(channel_base=256, channel_max=32, num_layers=6)
 
 
 def get_architecture(architecture: str, image_size: Tuple[int, int, int],
                      device: str | torch.device = "cuda",
                      seed: Optional[int] = None, n_classes: int = 1,
-                     dtype: DtypeLike = torch.float32
+                     dtype: DtypeLike = torch.float32,
+                     batch_size: Optional[int] = None
                      ) -> Tuple[nn.Module, Discriminator]:
     """Build (G, D) on ``device`` with float32 parameters, computing in
     ``dtype`` (``torch.float32`` or ``torch.bfloat16``, or ``f32``/``bf16``):
@@ -43,12 +58,15 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
     from contrad_tpu_torch.models.sndcgan import DSndcgan, GSndcgan
     from contrad_tpu_torch.models.snresnet import DSnresnet18
     from contrad_tpu_torch.models.stylegan2 import DStylegan2, GStylegan2
+    from contrad_tpu_torch.models.stylegan3 import GStylegan3
 
     device = resolve_device(device)
     dtype = reduced_dtype(dtype)
     resolution = image_size[0]
     if architecture not in ARCHITECTURES:
         raise NotImplementedError(f"unknown architecture: {architecture}")
+    beta = (0.999 if batch_size is None
+            else 0.5 ** (batch_size / (20 * 1e3)))
     # Parameters are drawn on the CPU from a forked global generator, so a
     # seed gives the same weights on every device and the caller's random
     # state is left as it was.
@@ -75,6 +93,19 @@ def get_architecture(architecture: str, image_size: Tuple[int, int, int],
                                    channel_multiplier=1.0, dtype=dtype)
             discriminator = DStylegan2(size=resolution, channel_multiplier=1.0,
                                        mlp_linear=True, d_hidden=512,
+                                       n_classes=n_classes, dtype=dtype)
+        elif architecture == "stylegan3_t_512":
+            generator = GStylegan3(size=resolution, magnitude_ema_beta=beta,
+                                   dtype=dtype)
+            discriminator = DStylegan2(size=resolution, channel_multiplier=1.0,
+                                       mlp_linear=True, d_hidden=512,
+                                       n_classes=n_classes, dtype=dtype)
+        elif architecture == "stylegan3_t_tiny":
+            generator = GStylegan3(size=resolution, z_dim=32, w_dim=32,
+                                   magnitude_ema_beta=beta, dtype=dtype,
+                                   **TINY_SCHEDULE)
+            discriminator = DStylegan2(size=resolution, channel_multiplier=0.25,
+                                       mlp_linear=True, d_hidden=32,
                                        n_classes=n_classes, dtype=dtype)
         else:
             generator = GStylegan2(size=resolution, n_mlp=2,

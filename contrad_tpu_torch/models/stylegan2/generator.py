@@ -224,6 +224,17 @@ class GStylegan2(nn.Module):
                             device=device)
         return z_mix, torch.where(nomix, self.n_latent, layer)
 
+    def draws(self, n: int, generator: torch.Generator,
+              style_mix: float) -> dict:
+        """The random inputs of a train-mode forward at batch ``n``, drawn
+        in this order: latents, noise maps, and the style mixing where
+        ``style_mix`` > 0 (else None)."""
+        device = generator.device
+        return {"z": self.sample_latent(n, generator),
+                "noise": self.draw_noise(n, generator, device),
+                "mixing": (self.draw_mixing(n, style_mix, generator, device)
+                           if style_mix > 0 else None)}
+
     # ------------------------------------------------------------- forward
 
     def style_forward(self, z: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="StyleGAN2 training on PyTorch")
     p.add_argument("config", type=str)
     p.add_argument("architecture", type=str,
-                   help="stylegan2 | stylegan2_512 | stylegan2_tiny")
+                   help="stylegan2 | stylegan2_512 | stylegan2_tiny | "
+                        "stylegan3_t_512 | stylegan3_t_tiny")
     p.add_argument("--mode", default="contrad", type=str)
     p.add_argument("--penalty", default="none", type=str,
                    help="none | gp | cr | bcr")
@@ -97,7 +98,8 @@ def build(P: argparse.Namespace):
     train_set, _, image_size = get_dataset(opt.dataset)
     generator, discriminator = get_architecture(P.architecture, image_size,
                                                 device=device, seed=P.seed,
-                                                dtype=P.dtype)
+                                                dtype=P.dtype,
+                                                batch_size=opt.batch_size)
 
     def lr_decay_fn(count: int) -> float:
         # stepped half-life decay (reference train_stylegan2.py:93-103)

@@ -30,13 +30,14 @@ capture of its own.
     statistics, Adam's moments and count, the generator), which is then
     restored bitwise: warm-up trains nothing. Their kernel launches are
     real and counted.
-  * **Counts.** A capture launches nothing: the launches of the blur and of
-    the fused activation it recorded are taken off their counters
-    (``blur2d.launches``, ``fused_leaky_relu.launches`` and their
-    ``scalar_launches``) and added back at each replay, as are the
-    collectives of a world (``parallel.collectives.counts``), and the
-    optimisers' host counts advance by each replay's updates (the device
-    counts advance inside the graph).
+  * **Counts.** A capture launches nothing: the launches of the
+    hand-written kernels it recorded are taken off their counters
+    (``blur2d.launches``, ``fused_leaky_relu.launches``,
+    ``filtered_lrelu.launches`` and their ``scalar_launches``) and added
+    back at each replay, as are the collectives of a world
+    (``parallel.collectives.counts``), and the optimisers' host counts
+    advance by each replay's updates (the device counts advance inside the
+    graph).
   * **Worlds.** Under NCCL a step's collectives (the gathers of the global
     losses, the batch-norm statistics, the gradient all-reduce) are captured
     inside its graph; the communicator exists before (``init_distributed``
@@ -65,14 +66,15 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from contrad_tpu_torch.ops import blur, fused_act
+from contrad_tpu_torch.ops import blur, filtered_lrelu, fused_act
 from contrad_tpu_torch.parallel import collectives
 from contrad_tpu_torch.training.step import Metrics, StyleGAN2Trainer
 from contrad_tpu_torch.utils.trace import span
 
 WARMUP_STEPS = 2  # eager steps of a kind before its capture
 # the hand-written kernels' wrappers, whose launch counters a replay advances
-COUNTED = (blur.blur2d, fused_act.fused_leaky_relu)
+COUNTED = (blur.blur2d, fused_act.fused_leaky_relu,
+           filtered_lrelu.filtered_lrelu)
 
 
 def _launch_counts():

@@ -13,7 +13,10 @@
      buffers copied.
 With a StyleGAN2 G (``train_gan`` on a ``stylegan2*`` architecture) each G
 forward draws its noise maps and its style mixing, as the JAX trainer's G
-does with its default probability of 0.9.
+does with its default probability of 0.9; a StyleGAN3 G draws its latents
+alone (``G.draws``), and each of its forwards in train mode updates its EMA
+buffers (``w_avg``, the magnitude EMAs) in place, inside a step's CUDA
+graph too; the EMA G copies them with its parameters' EMA.
 
 :class:`StyleGAN2Trainer`, ``train_stylegan2.py``'s (reference
 ``train_stylegan2.py:163-229``):
@@ -66,7 +69,6 @@ import torch
 
 from contrad_tpu_torch import at_least_f32
 from contrad_tpu_torch.augment import AugRng, traced
-from contrad_tpu_torch.models.stylegan2 import GStylegan2
 from contrad_tpu_torch.ops.spectral_norm import commit_u
 from contrad_tpu_torch.parallel import (
     all_reduce_grads, data_shard, gather_rows)
@@ -169,15 +171,13 @@ class GANTrainer:
     # ------------------------------------------------------------- draws
 
     def draw_g(self, n: int) -> Dict[str, Any]:
-        """The draws of one G forward: the latents and, for a StyleGAN2 G,
-        its per-layer noise and style-mixing draws."""
+        """The draws of one G forward, as G asks for them (``draws``): a
+        StyleGAN2 G's latents, per-layer noise and style mixing, a StyleGAN3
+        G's latents alone; else the latents."""
         g, G = self.rng.device, self.generator
-        if not isinstance(G, GStylegan2):
-            return {"z": G.sample_latent(n, g)}
-        return {"z": G.sample_latent(n, g),
-                "noise": G.draw_noise(n, g, self.device),
-                "mixing": (G.draw_mixing(n, self.style_mix, g, self.device)
-                           if self.style_mix > 0 else None)}
+        if hasattr(G, "draws"):
+            return G.draws(n, g, self.style_mix)
+        return {"z": G.sample_latent(n, g)}
 
     def draw_aug(self, shape):
         return self.ctx.augment.sample(tuple(shape), self.rng)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from contrad_tpu.ops.fused_act import fused_leaky_relu as jax_fused_leaky_relu
 from contrad_tpu_torch.models.stylegan2.generator import stylegan2_channels
-from contrad_tpu_torch.ops import blur, fused_act
+from contrad_tpu_torch.ops import blur, filtered_lrelu, fused_act
 from contrad_tpu_torch.training import graph
 
 GAIN = math.sqrt(2.0)
@@ -420,4 +420,5 @@ def test_launch_counts_and_arguments(monkeypatch):
             grad_b["has_bias"]) == (0, 1, 1, 1)
     assert (odd["vector"], odd["c"], odd["rows"]) == (0, 5, 8)
     assert act["gain"] == pytest.approx(GAIN) and act["slope"] == 0.2
-    assert graph.COUNTED == (blur.blur2d, counter)
+    assert graph.COUNTED == (blur.blur2d, counter,
+                             filtered_lrelu.filtered_lrelu)
